@@ -1,10 +1,13 @@
 // Shared pieces of the gemma_torch kernels: the Pab index tables, block
-// reductions over the individual axis, and the covariate-elimination
-// recurrences (GEMMA CalcPab/CalcPPab/CalcPPPab, lmm.cpp:283-482).
+// reductions over the individual axis, the covariate-elimination
+// recurrences (GEMMA CalcPab/CalcPPab/CalcPPPab, lmm.cpp:283-482) and the
+// per-SNP test rows that K4 and K5 read.
 //
-// Every kernel is float32 (the speed mode on the card).  Index tables
-// come from gemma_torch.models.lmm.indices.pab_indices and are passed as
-// one int32 array laid out by `pab_tables` in kernels/__init__.py:
+// The templates take the working scalar type T: float in the speed mode,
+// double in the parity mode; the float instantiations are the arithmetic
+// the float32 kernels always ran.  Index tables come from
+// gemma_torch.models.lmm.indices.pab_indices and are passed as one int32
+// array laid out by `pab_tables` in kernels/__init__.py:
 //   aw (steps, ni) | bw (steps, ni) | ww (steps) | diag (steps)
 //   | kind (ni) | col (ni)
 // where steps = n_cvt + 1 and, for the base row of flat position k,
@@ -19,6 +22,7 @@
 #define GT_MAX_CVT 16
 #define GT_MAX_NI ((GT_MAX_CVT + 3) * (GT_MAX_CVT + 2) / 2)
 #define GT_MAX_C1 (GT_MAX_CVT + 1)
+#define GT_MAX_M (GT_MAX_C1 * (GT_MAX_C1 + 1) / 2)
 #define GT_THREADS 256
 #define GT_WARPS (GT_THREADS / 32)
 
@@ -26,6 +30,20 @@
   extern "C" const char* name##_error(int e) {                         \
     return cudaGetErrorString((cudaError_t)e);                         \
   }
+
+// float → the f-suffixed functions, double → the plain ones
+__device__ __forceinline__ float gt_log(float v) { return logf(v); }
+__device__ __forceinline__ double gt_log(double v) { return log(v); }
+__device__ __forceinline__ float gt_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double gt_sqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float gt_abs(float v) { return fabsf(v); }
+__device__ __forceinline__ double gt_abs(double v) { return fabs(v); }
+__device__ __forceinline__ float gt_max(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double gt_max(double a, double b) {
+  return fmax(a, b);
+}
 
 struct PabTables {
   const int* aw;
@@ -53,7 +71,8 @@ __device__ inline PabTables gt_tables(const int* tab, int n_cvt) {
   return t;
 }
 
-__device__ inline float gt_warp_sum(float v) {
+template <typename T>
+__device__ inline T gt_warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -62,17 +81,16 @@ __device__ inline float gt_warp_sum(float v) {
 // Block-wide sums of Q quantities over i in [0, n): out[q] = sum_i f(q, i).
 // Eight quantities share one pass and one barrier.  Every thread of the
 // block must call it; `out` and `red` are shared memory (red holds
-// GT_WARPS * 8 floats).  On return out[0..Q) is visible to all threads.
-template <typename F>
-__device__ inline void gt_block_sums(F f, int Q, int n, float* out,
-                                     float* red) {
+// GT_WARPS * 8 values).  On return out[0..Q) is visible to all threads.
+template <typename T, typename F>
+__device__ inline void gt_block_sums(F f, int Q, int n, T* out, T* red) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int q0 = 0; q0 < Q; q0 += 8) {
-    float acc[8];
+    T acc[8];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] = 0.f;
+    for (int r = 0; r < 8; ++r) acc[r] = T(0);
     for (int i = tid; i < n; i += GT_THREADS) {
 #pragma unroll
       for (int r = 0; r < 8; ++r)
@@ -80,12 +98,12 @@ __device__ inline void gt_block_sums(F f, int Q, int n, float* out,
     }
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      float v = gt_warp_sum(acc[r]);
+      T v = gt_warp_sum(acc[r]);
       if (lane == 0) red[warp * 8 + r] = v;
     }
     __syncthreads();
     if (tid < 8 && q0 + tid < Q) {
-      float v = 0.f;
+      T v = T(0);
       for (int w = 0; w < GT_WARPS; ++w) v += red[w * 8 + tid];
       out[q0 + tid] = v;
     }
@@ -97,35 +115,35 @@ __device__ inline void gt_block_sums(F f, int Q, int n, float* out,
 // memory, threads parallel over the flat index k.  `order` says how many
 // of (pab, ppab, pppab) are live.  Reads cur rows, writes nxt rows; the
 // caller swaps and synchronises.
+template <typename T>
 __device__ inline void gt_pab_step(const PabTables& t, int ni, int p,
-                                   int order, const float* pab,
-                                   const float* ppab, const float* pppab,
-                                   float* npab, float* nppab,
-                                   float* npppab) {
+                                   int order, const T* pab, const T* ppab,
+                                   const T* pppab, T* npab, T* nppab,
+                                   T* npppab) {
   const int* aw = t.aw + (p - 1) * ni;
   const int* bw = t.bw + (p - 1) * ni;
   const int w = t.ww[p - 1];
-  const float ps_ww = pab[w];
-  const bool nz = ps_ww != 0.f;
-  const float safe = nz ? ps_ww : 1.f;
+  const T ps_ww = pab[w];
+  const bool nz = ps_ww != T(0);
+  const T safe = nz ? ps_ww : T(1);
   for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
-    const float ps_aw = pab[aw[k]];
-    const float ps_bw = pab[bw[k]];
+    const T ps_aw = pab[aw[k]];
+    const T ps_bw = pab[bw[k]];
     npab[k] = nz ? pab[k] - ps_aw * ps_bw / safe : pab[k];
     if (order >= 2) {
-      const float ps2_ab = ppab[k];
-      const float ps2_aw = ppab[aw[k]];
-      const float ps2_bw = ppab[bw[k]];
-      const float ps2_ww = ppab[w];
-      const float v = ps2_ab + ps_aw * ps_bw * ps2_ww / (safe * safe) -
-                      (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
+      const T ps2_ab = ppab[k];
+      const T ps2_aw = ppab[aw[k]];
+      const T ps2_bw = ppab[bw[k]];
+      const T ps2_ww = ppab[w];
+      const T v = ps2_ab + ps_aw * ps_bw * ps2_ww / (safe * safe) -
+                  (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
       nppab[k] = nz ? v : ps2_ab;
       if (order >= 3) {
-        const float ps3_ab = pppab[k];
-        const float ps3_aw = pppab[aw[k]];
-        const float ps3_bw = pppab[bw[k]];
-        const float ps3_ww = pppab[w];
-        const float v3 =
+        const T ps3_ab = pppab[k];
+        const T ps3_aw = pppab[aw[k]];
+        const T ps3_bw = pppab[bw[k]];
+        const T ps3_ww = pppab[w];
+        const T v3 =
             ps3_ab -
             ps_aw * ps_bw * ps2_ww * ps2_ww / (safe * safe * safe) -
             (ps_aw * ps3_bw + ps_bw * ps3_aw + ps2_aw * ps2_bw) / safe +
@@ -160,4 +178,66 @@ __device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
                     (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
     nppab[k] = nz ? v : ps2_ab;
   }
+}
+
+// Shared memory of one SNP's test rows (K4, K5).
+template <typename T>
+struct TestSmem {
+  T red[GT_WARPS * 8];
+  T q[GT_MAX_M + GT_MAX_C1 + 1];
+  T rows[2][GT_MAX_NI];
+};
+
+// The entries of the CalcPab rows that the Wald and score tests read:
+// p_yy, p_xx, p_xy after the covariates are eliminated, px_yy after x.
+template <typename T>
+struct TestRows {
+  T p_yy, p_xx, p_xy, px_yy;
+};
+
+// One SNP's test rows at weight λ = l: the base row by block reduction
+// over n (hi = 1/(l·eval + 1)), then the CalcPab recurrence in shared
+// memory, threads parallel over the flat index.  Every thread of the
+// block calls it and gets the same values.
+template <typename T>
+__device__ inline TestRows<T> gt_test_rows(T l, const T* eval, const T* UtWy,
+                                           const T* wy, const T* x,
+                                           const int* tab, int n_cvt, int n,
+                                           int M, int xx_pos, int xy_pos,
+                                           TestSmem<T>& sm) {
+  const int C1 = n_cvt + 1;
+  auto f = [&](int qi, int i) -> T {
+    const T hi = T(1) / (l * eval[i] + T(1));
+    if (qi < M) return hi * wy[(long)i * M + qi];
+    qi -= M;
+    const T wx = hi * x[i];
+    if (qi < C1) return wx * UtWy[(long)i * C1 + qi];
+    return wx * x[i];
+  };
+  gt_block_sums(f, M + C1 + 1, n, sm.q, sm.red);
+  const PabTables t = gt_tables(tab, n_cvt);
+  const int ni = gt_n_index(n_cvt);
+  for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
+    const int kind = t.kind[k], col = t.col[k];
+    sm.rows[0][k] = kind == 0   ? sm.q[col]
+                    : kind == 1 ? sm.q[M + C1]
+                                : sm.q[M + col];
+  }
+  __syncthreads();
+  TestRows<T> r;
+  r.p_yy = r.p_xx = r.p_xy = T(0);
+  int cur = 0;
+  for (int p = 1; p <= n_cvt + 1; ++p) {
+    if (p == n_cvt + 1) {
+      r.p_yy = sm.rows[cur][ni - 1];
+      r.p_xx = sm.rows[cur][xx_pos];
+      r.p_xy = sm.rows[cur][xy_pos];
+    }
+    gt_pab_step<T>(t, ni, p, 1, sm.rows[cur], nullptr, nullptr,
+                   sm.rows[1 - cur], nullptr, nullptr);
+    __syncthreads();
+    cur = 1 - cur;
+  }
+  r.px_yy = sm.rows[cur][ni - 1];  // yy is the last flat position
+  return r;
 }

@@ -6,7 +6,8 @@
 // after its grid scan: the bracket loop (:307-418), _newton_batched
 // (:186-235) over likelihood.dev12 (likelihood.py:441-485) and
 // likelihood.logf_stable (likelihood.py:269-341) at each candidate and
-// at l_min/l_max (:420-434).  On the TPU this was a chain of XLA while
+// at l_min/l_max (:420-434).  The lane's evaluations are lmm_lane.cuh's,
+// which K6 and K7 share.  On the TPU this was a chain of XLA while
 // loops in which every iteration re-read the whole (S, n) block for all
 // lanes until the slowest lane finished; the fused Pallas version never
 // compiled there.
@@ -19,11 +20,7 @@
 // last iterate, fail on a zero derivative, a non-finite value or a step
 // out of (l_min, l_max) that has not converged, stop at 100 iterations,
 // float32 tolerance 5e-4 and the fall-back to the bracket midpoint when
-// Newton fails.  Each dev12 is one set of block reductions over n (the
-// order-3 base rows) followed by the three recurrences, parallel over the
-// flat index in shared memory.  logf_stable builds the (c+1)² weighted
-// Gram by block reduction, factors it in one thread and forms Σ h r² by a
-// second reduction: sums of non-negative terms, no cancellation.
+// Newton fails.
 //
 // Bound: the data moved is the lane's Utx row plus eval/UtWy/wy (shared
 // by all lanes, L2-resident); per evaluation the work is O(n·(c+1)²)
@@ -31,240 +28,7 @@
 // every evaluation; keeping the row in shared memory across iterations
 // is later work.  Lanes finish independently: no lane waits for the
 // slowest one, unlike the lock-step while loops it replaces.
-#include "common.cuh"
-
-#define GT_MAX_M (GT_MAX_C1 * (GT_MAX_C1 + 1) / 2)
-#define GT_MAX_Q (3 * GT_MAX_M + 3 * GT_MAX_C1 + 5)
-#define GT_MAX_NG (GT_MAX_C1 * (GT_MAX_C1 + 1) / 2)
-
-struct SolveCtx {
-  const float* eval;
-  const float* UtWy;  // (n, c+1), y last
-  const float* wy;    // (n, M)
-  const float* x;     // (n,) this lane's Utx row
-  PabTables t;
-  int n_cvt, n, M, ni, calc_null, reml;
-  float logf_const;   // the constant term of (RE)ML logf
-};
-
-struct SolveSmem {
-  float red[GT_WARPS * 8];
-  float q[GT_MAX_Q];
-  float rows[6][GT_MAX_NI];
-  float G[GT_MAX_C1 * GT_MAX_C1];
-  float beta[GT_MAX_C1];
-  int pa[GT_MAX_NG];
-  int pb[GT_MAX_NG];
-  float bc[4];
-};
-
-// d logL/dλ and d² logL/dλ² at lam (LogRL_dev12 / LogL_dev12).
-__device__ void gt_dev12(const SolveCtx& c, SolveSmem& sm, float lam,
-                         float* d1, float* d2) {
-  const int M = c.M, C1 = c.n_cvt + 1;
-  const float* eval = c.eval;
-  const float* x = c.x;
-  const float* wy = c.wy;
-  const float* UtWy = c.UtWy;
-  auto f = [&](int q, int i) -> float {
-    const float hi = 1.f / (lam * eval[i] + 1.f);
-    if (q < 3 * M) {
-      const int p = q / M, m = q - p * M;
-      float w = hi;
-      if (p >= 1) w = w * hi;
-      if (p >= 2) w = w * hi;
-      return w * wy[(long)i * M + m];
-    }
-    q -= 3 * M;
-    if (q < 3 * C1) {
-      const int p = q / C1, j = q - p * C1;
-      float v = hi * x[i];
-      if (p >= 1) v = v * hi;
-      if (p >= 2) v = v * hi;
-      return v * UtWy[(long)i * C1 + j];
-    }
-    q -= 3 * C1;
-    if (q < 3) {
-      const float v1 = hi * x[i];
-      if (q == 0) return v1 * x[i];
-      if (q == 1) return v1 * v1;
-      return v1 * v1 * hi;
-    }
-    return q == 3 ? hi : hi * hi;
-  };
-  const int Q = 3 * M + 3 * C1 + 5;
-  gt_block_sums(f, Q, c.n, sm.q, sm.red);
-  const int ni = c.ni;
-  for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
-    const int kind = c.t.kind[k], col = c.t.col[k];
-    for (int p = 0; p < 3; ++p) {
-      float v;
-      if (kind == 0)
-        v = sm.q[p * M + col];
-      else if (kind == 1)
-        v = sm.q[3 * M + 3 * C1 + p];
-      else
-        v = sm.q[3 * M + p * C1 + col];
-      sm.rows[p][k] = v;
-    }
-  }
-  __syncthreads();
-  const float trace_hi = sm.q[Q - 2];
-  const float trace_hihi = sm.q[Q - 1];
-  const int nc_total = c.calc_null ? c.n_cvt : c.n_cvt + 1;
-  float trace_p = trace_hi, trace_pp = trace_hihi;
-  int cur = 0;
-  for (int p = 1; p <= nc_total; ++p) {
-    float* pab = sm.rows[cur];
-    float* ppab = sm.rows[cur + 1];
-    float* pppab = sm.rows[cur + 2];
-    const int d = c.t.diag[p - 1];
-    const float ps_ww = pab[d], ps2_ww = ppab[d], ps3_ww = pppab[d];
-    trace_p = trace_p - ps2_ww / ps_ww;
-    trace_pp = trace_pp + ps2_ww * ps2_ww / (ps_ww * ps_ww) -
-               2.f * ps3_ww / ps_ww;
-    const int nxt = 3 - cur;
-    gt_pab_step(c.t, ni, p, 3, pab, ppab, pppab, sm.rows[nxt],
-                sm.rows[nxt + 1], sm.rows[nxt + 2]);
-    __syncthreads();
-    cur = nxt;
-  }
-  const float p_yy = sm.rows[cur][ni - 1];
-  const float pp_yy = sm.rows[cur + 1][ni - 1];
-  const float ppp_yy = sm.rows[cur + 2][ni - 1];
-  const float ypkpy = (p_yy - pp_yy) / lam;
-  const float ypkpkpy = (p_yy + ppp_yy - 2.f * pp_yy) / (lam * lam);
-  if (c.reml) {
-    const float df = (float)(c.calc_null ? c.n - c.n_cvt : c.n - c.n_cvt - 1);
-    const float trace_pk = (df - trace_p) / lam;
-    const float trace_pkpk = (df + trace_pp - 2.f * trace_p) / (lam * lam);
-    *d1 = -0.5f * trace_pk + 0.5f * df * ypkpy / p_yy;
-    *d2 = 0.5f * trace_pkpk -
-          0.5f * df * (2.f * ypkpkpy * p_yy - ypkpy * ypkpy) / (p_yy * p_yy);
-  } else {
-    const float nf = (float)c.n;
-    const float trace_hik = (nf - trace_hi) / lam;
-    const float trace_hikhik = (nf + trace_hihi - 2.f * trace_hi) / (lam * lam);
-    *d1 = -0.5f * trace_hik + 0.5f * nf * ypkpy / p_yy;
-    *d2 = 0.5f * trace_hikhik -
-          0.5f * nf * (2.f * ypkpkpy * p_yy - ypkpy * ypkpy) / (p_yy * p_yy);
-  }
-  __syncthreads();  // rows and q are reused by the next evaluation
-}
-
-// Column a of the GLS design: covariates, then x for the alternative.
-__device__ __forceinline__ float gt_z(const SolveCtx& c, int a, int i) {
-  return a < c.n_cvt ? c.UtWy[(long)i * (c.n_cvt + 1) + a] : c.x[i];
-}
-
-// In-place Cholesky of the CZ×CZ matrix in G (lower triangle); returns
-// 2·Σ log|L_ii|, or NaN when a pivot is not positive (the reference's
-// cholesky returns NaN factors there).  One thread.
-__device__ float gt_cholesky_logdet(float* G, int CZ) {
-  float ld = 0.f;
-  for (int j = 0; j < CZ; ++j) {
-    float s = G[j * CZ + j];
-    for (int k = 0; k < j; ++k) s -= G[j * CZ + k] * G[j * CZ + k];
-    if (!(s > 0.f)) return NAN;
-    const float ljj = sqrtf(s);
-    G[j * CZ + j] = ljj;
-    ld += logf(fabsf(ljj));
-    for (int i = j + 1; i < CZ; ++i) {
-      float v = G[i * CZ + j];
-      for (int k = 0; k < j; ++k) v -= G[i * CZ + k] * G[j * CZ + k];
-      G[i * CZ + j] = v / ljj;
-    }
-  }
-  return 2.f * ld;
-}
-
-// Σ log|L0_ii| of the identity-weighted Gram (λ-independent REML piece).
-__device__ float gt_logdet0(const SolveCtx& c, SolveSmem& sm, int CZ) {
-  const int nG = CZ * (CZ + 1) / 2;
-  auto f = [&](int q, int i) -> float {
-    return gt_z(c, sm.pa[q], i) * gt_z(c, sm.pb[q], i);
-  };
-  gt_block_sums(f, nG, c.n, sm.q, sm.red);
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < nG; ++q) {
-      sm.G[sm.pa[q] * CZ + sm.pb[q]] = sm.q[q];
-      sm.G[sm.pb[q] * CZ + sm.pa[q]] = sm.q[q];
-    }
-    sm.bc[0] = gt_cholesky_logdet(sm.G, CZ);
-  }
-  __syncthreads();
-  const float r = sm.bc[0];
-  __syncthreads();
-  return r;
-}
-
-// logf_stable: (RE)ML log-likelihood via the explicit GLS residual.
-__device__ float gt_logf_stable(const SolveCtx& c, SolveSmem& sm, float lam,
-                                float logdet0) {
-  const int CZ = c.calc_null ? c.n_cvt : c.n_cvt + 1;
-  const int C1 = c.n_cvt + 1;
-  const int nG = CZ * (CZ + 1) / 2;
-  const float* eval = c.eval;
-  const float* UtWy = c.UtWy;
-  auto f = [&](int q, int i) -> float {
-    const float v = lam * eval[i] + 1.f;
-    const float hi = 1.f / v;
-    if (q < nG) return hi * gt_z(c, sm.pa[q], i) * gt_z(c, sm.pb[q], i);
-    q -= nG;
-    if (q < CZ) return hi * gt_z(c, q, i) * UtWy[(long)i * C1 + c.n_cvt];
-    return logf(fabsf(v));
-  };
-  gt_block_sums(f, nG + CZ + 1, c.n, sm.q, sm.red);
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < nG; ++q) {
-      sm.G[sm.pa[q] * CZ + sm.pb[q]] = sm.q[q];
-      sm.G[sm.pb[q] * CZ + sm.pa[q]] = sm.q[q];
-    }
-    const float ld = gt_cholesky_logdet(sm.G, CZ);
-    // L L' beta = rhs: forward then back substitution
-    for (int i = 0; i < CZ; ++i) {
-      float v = sm.q[nG + i];
-      for (int k = 0; k < i; ++k) v -= sm.G[i * CZ + k] * sm.beta[k];
-      sm.beta[i] = v / sm.G[i * CZ + i];
-    }
-    for (int i = CZ - 1; i >= 0; --i) {
-      float v = sm.beta[i];
-      for (int k = i + 1; k < CZ; ++k) v -= sm.G[k * CZ + i] * sm.beta[k];
-      sm.beta[i] = v / sm.G[i * CZ + i];
-    }
-    if (isnan(ld))
-      for (int i = 0; i < CZ; ++i) sm.beta[i] = NAN;
-    sm.bc[0] = ld;
-    sm.bc[1] = sm.q[nG + CZ];
-  }
-  __syncthreads();
-  const float ld = sm.bc[0];
-  const float logdet_h = sm.bc[1];
-  const int nc = c.n_cvt;
-  auto fr = [&](int, int i) -> float {
-    const float hi = 1.f / (lam * eval[i] + 1.f);
-    float wb = 0.f;
-    for (int a = 0; a < nc; ++a) wb += UtWy[(long)i * C1 + a] * sm.beta[a];
-    float t = UtWy[(long)i * C1 + nc] - wb;
-    if (!c.calc_null) t = t - c.x[i] * sm.beta[nc];
-    return hi * (t * t);
-  };
-  gt_block_sums(fr, 1, c.n, sm.q, sm.red);
-  float p_yy = sm.q[0];
-  __syncthreads();
-  if (p_yy >= 0.f && p_yy < 1e-8f) p_yy = 1e-8f;
-  if (c.reml) {
-    const float df = (float)(c.calc_null ? c.n - c.n_cvt : c.n - c.n_cvt - 1);
-    const float logdet_hiw = ld - logdet0;
-    return c.logf_const - 0.5f * logdet_h - 0.5f * logdet_hiw -
-           0.5f * df * logf(p_yy);
-  }
-  return c.logf_const - 0.5f * logdet_h - 0.5f * (float)c.n * logf(p_yy);
-}
-
-__device__ __forceinline__ float gt_clip(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
+#include "lmm_lane.cuh"
 
 __global__ void __launch_bounds__(GT_THREADS)
 lambda_solve_kernel(const float* __restrict__ d1f,
@@ -277,9 +41,9 @@ lambda_solve_kernel(const float* __restrict__ d1f,
                     int M, int calc_null, int reml, float l_min, float l_max,
                     float epsrel, int max_iter, float logf_const,
                     float* lam_out, float* logf_out) {
-  __shared__ SolveSmem sm;
+  __shared__ SolveSmem<float> sm;
   const int s = blockIdx.x;
-  SolveCtx c;
+  SolveCtx<float, float> c;
   c.eval = eval;
   c.UtWy = UtWy;
   c.wy = wy;
@@ -294,16 +58,7 @@ lambda_solve_kernel(const float* __restrict__ d1f,
   c.logf_const = logf_const;
 
   const int CZ = calc_null ? n_cvt : n_cvt + 1;
-  if (threadIdx.x == 0) {
-    int q = 0;
-    for (int a = 0; a < CZ; ++a)
-      for (int b = a; b < CZ; ++b) {
-        sm.pa[q] = a;
-        sm.pb[q] = b;
-        ++q;
-      }
-  }
-  __syncthreads();
+  gt_gram_pairs(sm, CZ);
   const float logdet0 = reml ? gt_logdet0(c, sm, CZ) : 0.f;
 
   const float* col = d1f + s;  // column s of (G_fine, S)
@@ -323,13 +78,13 @@ lambda_solve_kernel(const float* __restrict__ d1f,
 
     // Newton on (dev1, dev2), GEMMA exit semantics
     float x_prev = root_b, x = root_b, fv, dfv;
-    gt_dev12(c, sm, root_b, &fv, &dfv);
+    gt_dev12(c, sm, root_b, &fv, &dfv, 3);
     bool conv = false, failed = false;
     for (int it = 0; it < max_iter && !conv && !failed; ++it) {
       const bool zero_div = dfv == 0.f;
       const float step_x = x - fv / (zero_div ? 1.f : dfv);
       float f_new, df_new;
-      gt_dev12(c, sm, step_x, &f_new, &df_new);
+      gt_dev12(c, sm, step_x, &f_new, &df_new, 3);
       const bool bad = !isfinite(f_new) || !isfinite(df_new);
       const bool cv =
           (fabsf(step_x - x) < epsrel * fabsf(step_x)) || (step_x == x);

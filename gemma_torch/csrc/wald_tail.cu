@@ -1,147 +1,15 @@
-// K4 — Wald statistics and the F(1, df) tail.
+// K4 — Wald statistics and the F(1, df) tail, in float32 (speed mode)
+// and float64 (parity mode, entry point wald_tail_f64_launch).
 //
 // Replaces the reference package's device programs
 //   gemma_tpu/models/lmm/likelihood.py:488 wald_stats and
 //   gemma_tpu/ops/stats.py:21 f_sf
 // (CalcRLWald, lmm.cpp:1125-1161, with gsl_cdf_fdist_Q).
 //
-// One thread block per SNP: the base row of the Pab recurrence at the
-// lane's λ by block reduction over n, the CalcPab recurrence in shared
-// memory, then in one thread beta = p_xy/p_xx, se = sqrt(1/(tau p_xx)),
-// the cancellation-free f = (p_xy²/p_xx)·tau (likelihood.py:506-515) and
-// p = f_sf(f, 1, df).  torch has no incomplete beta: the regularised
-// incomplete beta is a Lentz continued fraction (Numerical Recipes
-// betacf) evaluated in float64, with the small-argument symmetry of
-// stats.py:38-43 and f_sf(x <= 0) = 1.
-//
-// Bound: bytes — the lane's Utx row (4n bytes) is read once from device
-// memory (eval/UtWy/wy are shared by all lanes and stay in L2) and three
-// floats are written; the tail is a few hundred float64 operations per
-// SNP.
-#include "common.cuh"
+// One thread block per SNP at the lane's REML λ; the kernel and its
+// bound are in test_tail.cuh, which K5 shares.
+#include "test_tail.cuh"
 
-#define GT_BETACF_MAXIT 1000
-
-__device__ double gt_betacf(double a, double b, double x) {
-  const double FPMIN = 1e-300, EPS = 1e-15;
-  const double qab = a + b, qap = a + 1.0, qam = a - 1.0;
-  double c = 1.0, d = 1.0 - qab * x / qap;
-  if (fabs(d) < FPMIN) d = FPMIN;
-  d = 1.0 / d;
-  double h = d;
-  for (int m = 1; m <= GT_BETACF_MAXIT; ++m) {
-    const double m2 = 2.0 * m;
-    double aa = m * (b - m) * x / ((qam + m2) * (a + m2));
-    d = 1.0 + aa * d;
-    if (fabs(d) < FPMIN) d = FPMIN;
-    c = 1.0 + aa / c;
-    if (fabs(c) < FPMIN) c = FPMIN;
-    d = 1.0 / d;
-    h *= d * c;
-    aa = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2));
-    d = 1.0 + aa * d;
-    if (fabs(d) < FPMIN) d = FPMIN;
-    c = 1.0 + aa / c;
-    if (fabs(c) < FPMIN) c = FPMIN;
-    d = 1.0 / d;
-    const double del = d * c;
-    h *= del;
-    if (fabs(del - 1.0) < EPS) break;
-  }
-  return h;
-}
-
-// Regularised incomplete beta I_x(a, b).
-__device__ double gt_betainc(double a, double b, double x) {
-  if (isnan(x)) return x;
-  if (x <= 0.0) return 0.0;
-  if (x >= 1.0) return 1.0;
-  const double lbt = lgamma(a + b) - lgamma(a) - lgamma(b) + a * log(x) +
-                     b * log1p(-x);
-  const double bt = exp(lbt);
-  if (x < (a + 1.0) / (a + b + 2.0)) return bt * gt_betacf(a, b, x) / a;
-  return 1.0 - bt * gt_betacf(b, a, 1.0 - x) / b;
-}
-
-// Survival function of F(d1, d2), as gsl_cdf_fdist_Q.
-__device__ double gt_f_sf(double x, double d1, double d2) {
-  if (isnan(x)) return x;
-  if (x <= 0.0) return 1.0;
-  const double xt = d2 / (d2 + d1 * x);
-  if (xt <= 0.5) return gt_betainc(0.5 * d2, 0.5 * d1, fmin(xt, 1.0));
-  const double wt = d1 * x / (d2 + d1 * x);
-  return 1.0 - gt_betainc(0.5 * d1, 0.5 * d2, fmin(wt, 1.0));
-}
-
-__global__ void __launch_bounds__(GT_THREADS)
-wald_tail_kernel(const float* __restrict__ lam,
-                 const float* __restrict__ eval,
-                 const float* __restrict__ UtWy,
-                 const float* __restrict__ wy,
-                 const float* __restrict__ Utx,
-                 const int* __restrict__ tab, int n_cvt, int n, int M,
-                 int xx_pos, int xy_pos, float* beta_out, float* se_out,
-                 float* p_out) {
-  __shared__ float red[GT_WARPS * 8];
-  __shared__ float q[GT_MAX_C1 * (GT_MAX_C1 + 1) / 2 + GT_MAX_C1 + 1];
-  __shared__ float rows[2][GT_MAX_NI];
-  const int s = blockIdx.x;
-  const int C1 = n_cvt + 1;
-  const float* x = Utx + (long)s * n;
-  const float l = lam[s];
-  auto f = [&](int qi, int i) -> float {
-    const float hi = 1.f / (l * eval[i] + 1.f);
-    if (qi < M) return hi * wy[(long)i * M + qi];
-    qi -= M;
-    const float wx = hi * x[i];
-    if (qi < C1) return wx * UtWy[(long)i * C1 + qi];
-    return wx * x[i];
-  };
-  gt_block_sums(f, M + C1 + 1, n, q, red);
-  const PabTables t = gt_tables(tab, n_cvt);
-  const int ni = gt_n_index(n_cvt);
-  for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
-    const int kind = t.kind[k], col = t.col[k];
-    rows[0][k] = kind == 0 ? q[col] : kind == 1 ? q[M + C1] : q[M + col];
-  }
-  __syncthreads();
-  float p_xx = 0.f, p_xy = 0.f;
-  int cur = 0;
-  for (int p = 1; p <= n_cvt + 1; ++p) {
-    if (p == n_cvt + 1) {
-      p_xx = rows[cur][xx_pos];
-      p_xy = rows[cur][xy_pos];
-    }
-    gt_pab_step(t, ni, p, 1, rows[cur], nullptr, nullptr, rows[1 - cur],
-                nullptr, nullptr);
-    __syncthreads();
-    cur = 1 - cur;
-  }
-  if (threadIdx.x == 0) {
-    const float px_yy = rows[cur][ni - 1];
-    const float df = (float)(n - n_cvt - 1);
-    const float beta = p_xy / p_xx;
-    const float tau = df / px_yy;
-    const float se = sqrtf(1.f / (tau * p_xx));
-    const float f_stat = (p_xy * p_xy / p_xx) * tau;
-    beta_out[s] = beta;
-    se_out[s] = se;
-    p_out[s] = (float)gt_f_sf((double)f_stat, 1.0, (double)df);
-  }
-}
-
-extern "C" int wald_tail_launch(const void* lam, const void* eval,
-                                const void* UtWy, const void* wy,
-                                const void* Utx, const void* tab, int n_cvt,
-                                int S, int n, int M, int xx_pos, int xy_pos,
-                                void* beta, void* se, void* p,
-                                void* stream) {
-  if (S > 0)
-    wald_tail_kernel<<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)lam, (const float*)eval, (const float*)UtWy,
-        (const float*)wy, (const float*)Utx, (const int*)tab, n_cvt, n, M,
-        xx_pos, xy_pos, (float*)beta, (float*)se, (float*)p);
-  return (int)cudaGetLastError();
-}
-
+GT_TEST_TAIL_ENTRY(wald_tail_launch, float, false)
+GT_TEST_TAIL_ENTRY(wald_tail_f64_launch, double, false)
 GT_ERROR_FN(wald_tail)

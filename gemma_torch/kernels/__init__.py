@@ -9,8 +9,12 @@ checkout, at first use, and `ctypes` binds it:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/gemma_torch/lib<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the sources and flags, so an edited
-source is rebuilt.  `build_all()` starts one `nvcc` per source at once.
+The library name carries a hash of the source, the shared headers
+(`*.cuh`) and the flags, so an edited source is rebuilt.  `build_all()`
+starts one `nvcc` per source at once.  A source may hold a float64
+instantiation beside its float32 kernel: that is a `Kernel` of its own
+(name `<name>_f64`, entry point `<name>_f64_launch`) with its own count,
+built from the same library.
 
 Every `Kernel` keeps `launches`, a plain count that its wrapper raises
 by one where it launches the kernel and nowhere else; a run reads them
@@ -46,6 +50,7 @@ MAX_CVT = 16
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 
 def _nvcc() -> str:
@@ -61,9 +66,11 @@ def _nvcc() -> str:
 class Kernel:
     """One CUDA kernel: its source, its C entry point, its launch count."""
 
-    def __init__(self, name: str, argtypes: tuple, replaces: str):
+    def __init__(self, name: str, argtypes: tuple, replaces: str,
+                 source: str | None = None):
         self.name = name
-        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.stem = source or name
+        self.source = os.path.join(CSRC_DIR, f"{self.stem}.cu")
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
@@ -72,11 +79,13 @@ class Kernel:
 
     def library_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in (self.source, os.path.join(CSRC_DIR, "common.cuh")):
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(CSRC_DIR, f)
+                                     for f in headers]:
             with open(path, "rb") as fh:
                 h.update(fh.read())
         return os.path.join(BUILD_DIR,
-                            f"lib{self.name}-{h.hexdigest()[:12]}.so")
+                            f"lib{self.stem}-{h.hexdigest()[:12]}.so")
 
     def build(self) -> str:
         """Compile the source unless its library exists; returns the
@@ -89,7 +98,7 @@ class Kernel:
         tmp = f"{lib}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        with open(os.path.join(BUILD_DIR, f"{self.name}.ptxas.txt"),
+        with open(os.path.join(BUILD_DIR, f"{self.stem}.ptxas.txt"),
                   "w") as fh:
             fh.write(res.stdout + res.stderr)
         if res.returncode != 0:
@@ -103,7 +112,7 @@ class Kernel:
         fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = list(self.argtypes) + [_P]     # ..., stream
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{self.name}_error")
+        err = getattr(lib, f"{self.stem}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err
@@ -120,11 +129,13 @@ class Kernel:
         self.launches += 1
 
 
-GENO_PROLOGUE = Kernel(
-    "geno_prologue",
-    (_P, _I, _I, _I, _I, _I, _I, _I, _P),
+_PROLOGUE_ARGS = (_P, _I, _I, _I, _I, _I, _I, _I, _P)
+_PROLOGUE_REPLACES = (
     "gemma_tpu/ops/pack2.py:56 unpack_bed + gemma_tpu/parallel/shard.py:41 "
     "impute_rows + gemma_tpu/ops/kinship.py:32 center_genotype_block")
+GENO_PROLOGUE = Kernel("geno_prologue", _PROLOGUE_ARGS, _PROLOGUE_REPLACES)
+GENO_PROLOGUE_F64 = Kernel("geno_prologue_f64", _PROLOGUE_ARGS,
+                           _PROLOGUE_REPLACES, source="geno_prologue")
 LAMBDA_GRID = Kernel(
     "lambda_grid",
     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -136,19 +147,51 @@ LAMBDA_SOLVE = Kernel(
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float32 bracket/"
     "Newton loop :307-434, _newton_batched :186, dev12 likelihood.py:441, "
     "logf_stable likelihood.py:269)")
-WALD_TAIL = Kernel(
-    "wald_tail",
-    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "gemma_tpu/models/lmm/likelihood.py:488 wald_stats + "
-    "gemma_tpu/ops/stats.py:21 f_sf")
+# K4 and K5 share one argument list: lam is (S,) for Wald, (1,) for score
+_TAIL_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)
+_WALD_REPLACES = ("gemma_tpu/models/lmm/likelihood.py:488 wald_stats + "
+                  "gemma_tpu/ops/stats.py:21 f_sf")
+_SCORE_REPLACES = ("gemma_tpu/models/lmm/likelihood.py:519 score_stats + "
+                   "gemma_tpu/ops/stats.py:21 f_sf")
+WALD_TAIL = Kernel("wald_tail", _TAIL_ARGS, _WALD_REPLACES)
+WALD_TAIL_F64 = Kernel("wald_tail_f64", _TAIL_ARGS, _WALD_REPLACES,
+                       source="wald_tail")
+SCORE_TAIL = Kernel("score_tail", _TAIL_ARGS, _SCORE_REPLACES)
+SCORE_TAIL_F64 = Kernel("score_tail_f64", _TAIL_ARGS, _SCORE_REPLACES,
+                        source="score_tail")
+LRT_TAIL = Kernel(
+    "lrt_tail",
+    (_I, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P),
+    "gemma_tpu/ops/stats.py:46 chisq_sf + gemma_tpu/models/lmm/engine.py:163 "
+    "(the LRT difference)")
+LAMBDA_SOLVE_F64 = Kernel(
+    "lambda_solve_f64",
+    (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D,
+     _I, _I, _D, _P, _P),
+    "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float64 branch: "
+    "per-point dev1 scan :300-302, _brent_batched :66, _newton_batched "
+    ":186, logf likelihood.py:237)")
 
-ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL)
+ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL, SCORE_TAIL,
+       LRT_TAIL, LAMBDA_SOLVE_F64, GENO_PROLOGUE_F64, WALD_TAIL_F64,
+       SCORE_TAIL_F64)
+
+
+def variant(k32: Kernel, k64: Kernel, dtype: torch.dtype) -> Kernel:
+    """The float32 or float64 instantiation of a kernel for `dtype`."""
+    if dtype == torch.float32:
+        return k32
+    if dtype == torch.float64:
+        return k64
+    raise TypeError(f"{k32.name} takes float32 or float64 operands, got "
+                    f"{dtype}")
 
 
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
-    with ThreadPoolExecutor(len(ALL)) as pool:
-        for fut in [pool.submit(k.build) for k in ALL]:
+    sources = {k.stem: k for k in ALL}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for fut in [pool.submit(k.build) for k in sources.values()]:
             fut.result()
 
 

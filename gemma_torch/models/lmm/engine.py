@@ -7,12 +7,12 @@ performs (lmm.cpp), as the reference package's engine does:
   * fit_null          — REML + ML lambda for the covariate-only model,
                         plus vg/ve/beta/se (CalcLmmVgVeBeta,
                         lmm.cpp:2210) and PVE (CalcPve, lmm.cpp:2183).
-  * assoc_block_impl  — per-SNP Wald statistics for a block of rotated
-                        genotypes (LMM::Analyze, lmm.cpp:1474-1658).
+  * assoc_block_impl  — per-SNP Wald/LRT/score statistics for a block
+                        of rotated genotypes (LMM::Analyze,
+                        lmm.cpp:1474-1658).
 
-This slice of the port runs -lmm 1 (Wald).  The other modes need the
-score statistic and the chi-square tail (ROADMAP.md, queue A "-lmm
-2/3/4/9").
+Modes mirror GEMMA's -lmm numbers: 1=Wald, 2=LRT, 3=score, 4=all,
+9=LRT+score (with beta/se from the score fit).
 """
 
 from __future__ import annotations
@@ -115,16 +115,31 @@ def assoc_block_impl(eval_, UtW, Uty, Utx_block, l_mle_null, logl_mle_H0,
 
     Utx_block rows are U'x for mean-imputed (uncentered) genotype
     vectors, exactly as LMM::Analyze feeds them (lmm.cpp:1589-1636).
-    On the card: K2 + K3 find each SNP's REML λ, K4 the Wald test."""
-    if mode != 1:
-        raise NotImplementedError(
-            f"-lmm {mode} is not ported yet (ROADMAP.md, queue A "
-            "\"-lmm 2/3/4/9\")")
+    The tests run in the reference's order, so its overrides hold: the
+    score runs at the null's ML λ; in mode 4 beta/se come from the Wald
+    fit, in mode 9 from the score fit; logl_H1 is the ML fit's in 2/4/9.
+    On the card: K5 the score; K2 + K3 (K7 in float64) each λ search; K4
+    the Wald test; K6 the likelihood-ratio test."""
+    if mode not in (1, 2, 3, 4, 9):
+        raise ValueError(f"assoc_block_impl runs -lmm 1/2/3/4/9, not {mode}")
     data = lk.build_batch_data(eval_, UtW, Uty, Utx_block, n_cvt)
     zeros = torch.zeros_like(Utx_block[:, 0])
-    remle = calc_lambda(data, n_cvt, calc_null=False, reml=True,
-                        l_min=l_min, l_max=l_max, n_region=n_region)
-    beta, se, p_wald = lk.wald_pvalues(remle.lam, data, n_cvt)
-    return AssocStats(beta=beta, se=se, lambda_remle=remle.lam,
-                      lambda_mle=zeros, p_wald=p_wald, p_lrt=zeros,
-                      p_score=zeros, logl_H1=remle.logf)
+    beta = se = lambda_remle = lambda_mle = zeros
+    p_wald = p_lrt = p_score = logl_H1 = zeros
+
+    if mode in (3, 4, 9):
+        beta, se, p_score = lk.score_pvalues(l_mle_null, data, n_cvt)
+    if mode in (1, 4):
+        remle = calc_lambda(data, n_cvt, calc_null=False, reml=True,
+                            l_min=l_min, l_max=l_max, n_region=n_region)
+        lambda_remle, logl_H1 = remle.lam, remle.logf
+        beta, se, p_wald = lk.wald_pvalues(remle.lam, data, n_cvt)
+    if mode in (2, 4, 9):
+        mle = calc_lambda(data, n_cvt, calc_null=False, reml=False,
+                          l_min=l_min, l_max=l_max, n_region=n_region)
+        lambda_mle = mle.lam
+        logl_H1, p_lrt = lk.lrt_pvalues(mle.lam, mle.logf, data, n_cvt,
+                                        l_mle_null, logl_mle_H0)
+    return AssocStats(beta=beta, se=se, lambda_remle=lambda_remle,
+                      lambda_mle=lambda_mle, p_wald=p_wald, p_lrt=p_lrt,
+                      p_score=p_score, logl_H1=logl_H1)

@@ -9,9 +9,11 @@ rotated vectors {U'w_1..U'w_c, U'x, U'y} with weights H^-1, H^-2, H^-3
 
 These are the plain PyTorch versions of the reference package's
 functions of the same names (gemma_tpu/models/lmm/likelihood.py), on
-tensors of any device and dtype.  Two of them have kernels on the card:
-the epilogue of `dev1_grid` (K2, csrc/lambda_grid.cu) and the Wald tail
-`wald_pvalues` (K4, csrc/wald_tail.cu).  Lanes are one axis (S,).
+tensors of any device and dtype.  Four of them have kernels on the card:
+the epilogue of `dev1_grid` (K2, csrc/lambda_grid.cu), the Wald tail
+`wald_pvalues` (K4, csrc/wald_tail.cu), the score tail `score_pvalues`
+(K5, csrc/score_tail.cu) and the likelihood-ratio tail `lrt_pvalues`
+(K6, csrc/lrt_tail.cu).  Lanes are one axis (S,).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from gemma_torch import kernels
 from gemma_torch.models.lmm.indices import pab_indices
-from gemma_torch.ops.stats import f_sf
+from gemma_torch.ops.stats import chisq_sf, f_sf
 
 P_YY_MIN = 1e-8  # round-off clamp, reference lmm.cpp:52
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -517,35 +519,65 @@ def wald_stats(lam, data: LmmBatchData, n_cvt: int):
     return beta, se, f_stat, df
 
 
+def score_stats(lam_null, data: LmmBatchData, n_cvt: int):
+    """beta, se, score-test F statistic at the null MLE lambda
+    (CalcRLScore, lmm.cpp:1163-1198)."""
+    idx = pab_indices(n_cvt)
+    n = data.eval.shape[0]
+    df = float(n - n_cvt - 1)
+
+    _, hi = _weights(lam_null, data.eval)
+    pab = _pab_rows(_base_row(hi, data, n_cvt), n_cvt)
+
+    p_yy = pab[n_cvt][..., idx.yy]
+    p_xx = pab[n_cvt][..., idx.xx]
+    p_xy = pab[n_cvt][..., idx.xy]
+    px_yy = pab[n_cvt + 1][..., idx.yy]
+
+    beta = p_xy / p_xx
+    tau = df / px_yy
+    se = torch.sqrt(1.0 / (tau * p_xx))
+    f_stat = n * p_xy * p_xy / (p_yy * p_xx)
+    return beta, se, f_stat, df
+
+
 def wald_pvalues_plain(lam, data: LmmBatchData, n_cvt: int):
     """PyTorch version of K4: (beta, se, p_wald)."""
     beta, se, f_stat, df = wald_stats(lam, data, n_cvt)
     return beta, se, f_sf(f_stat, 1.0, df)
 
 
-def wald_pvalues_cuda(lam, data: LmmBatchData, n_cvt: int):
-    """K4 on the card."""
+def _test_tail_cuda(k32, k64, lam, data: LmmBatchData, n_cvt: int):
+    """K4 or K5 on the card, float32 or float64: one block per SNP."""
     kernels.check_n_cvt(n_cvt)
     idx = pab_indices(n_cvt)
     S, n = data.Utx.shape
     M = data.wy_prod.shape[1]
-    f32 = torch.float32
-    kernels.check_operand(lam, "lam", f32, (S,))
-    kernels.check_operand(data.eval, "eval", f32, (n,))
-    kernels.check_operand(data.UtWy, "UtWy", f32, (n, n_cvt + 1))
-    kernels.check_operand(data.wy_prod, "wy_prod", f32, (n, M))
-    kernels.check_operand(data.Utx, "Utx", f32, (S, n))
-    dev = lam.device
+    dt = data.eval.dtype
+    kern = kernels.variant(k32, k64, dt)
+    kernels.check_operand(lam, "lam", dt)
+    kernels.check_operand(data.eval, "eval", dt, (n,))
+    kernels.check_operand(data.UtWy, "UtWy", dt, (n, n_cvt + 1))
+    kernels.check_operand(data.wy_prod, "wy_prod", dt, (n, M))
+    kernels.check_operand(data.Utx, "Utx", dt, (S, n))
+    dev = data.Utx.device
     tab = kernels.pab_tables(n_cvt, str(dev))
-    beta = torch.empty(S, dtype=f32, device=dev)
+    beta = torch.empty(S, dtype=dt, device=dev)
     se = torch.empty_like(beta)
     p = torch.empty_like(beta)
-    kernels.WALD_TAIL.launch(
+    kern.launch(
         dev, lam.data_ptr(), data.eval.data_ptr(), data.UtWy.data_ptr(),
         data.wy_prod.data_ptr(), data.Utx.data_ptr(), tab.data_ptr(), n_cvt,
         S, n, M, int(idx.xx), int(idx.xy), beta.data_ptr(), se.data_ptr(),
         p.data_ptr())
     return beta, se, p
+
+
+def wald_pvalues_cuda(lam, data: LmmBatchData, n_cvt: int):
+    """K4 on the card (float64 operands: its f64 instantiation)."""
+    kernels.check_operand(lam, "lam", lam.dtype, (data.Utx.shape[0],))
+    return _test_tail_cuda(kernels.WALD_TAIL, kernels.WALD_TAIL_F64, lam,
+                           data, n_cvt)
 
 
 def wald_pvalues(lam, data: LmmBatchData, n_cvt: int):
@@ -554,3 +586,106 @@ def wald_pvalues(lam, data: LmmBatchData, n_cvt: int):
     if lam.device.type == "cpu":
         return wald_pvalues_plain(lam, data, n_cvt)
     return wald_pvalues_cuda(lam, data, n_cvt)
+
+
+def score_pvalues_plain(lam_null, data: LmmBatchData, n_cvt: int):
+    """PyTorch version of K5: (beta, se, p_score) at the shared null
+    λ (a 0-d or one-element tensor)."""
+    lam = lam_null.reshape(1).expand(data.Utx.shape[0])
+    beta, se, f_stat, df = score_stats(lam, data, n_cvt)
+    return beta, se, f_sf(f_stat, 1.0, df)
+
+
+def score_pvalues_cuda(lam_null, data: LmmBatchData, n_cvt: int):
+    """K5 on the card (float64 operands: its f64 instantiation)."""
+    lam = lam_null.reshape(1).contiguous()
+    return _test_tail_cuda(kernels.SCORE_TAIL, kernels.SCORE_TAIL_F64, lam,
+                           data, n_cvt)
+
+
+def score_pvalues(lam_null, data: LmmBatchData, n_cvt: int):
+    """beta, se and p_score = f_sf(f_stat, 1, df) of every lane at the
+    null model's ML λ (K5 on the card)."""
+    if data.Utx.device.type == "cpu":
+        return score_pvalues_plain(lam_null, data, n_cvt)
+    return score_pvalues_cuda(lam_null, data, n_cvt)
+
+
+# K6 modes: re-evaluate the ML logf with float64 sums, or take the tail
+# of float64 logf values as given
+LRT_RECOMPUTE, LRT_TAIL_ONLY = 1, 0
+
+
+def lrt_pvalues_plain(lam, logf_H1, data: LmmBatchData, n_cvt: int,
+                      l_mle_null, logl_H0):
+    """PyTorch version of K6: (logl_H1, p_lrt).
+
+    float64 operands (parity mode): p = chisq_sf(2 (logf_H1 − logl_H0),
+    1) of the search's Pab-form values, as the reference computes it.
+    float32 operands (speed mode): both ML log-likelihoods are evaluated
+    again in the `logf_stable` form in float64 from the float32 operands
+    — logf_H1 at each lane's float32 λ_mle, logl_H0 at the null's — since
+    their difference is a cancellation of two O(n) float32 sums that the
+    χ²(1) tail, infinitely steep at 0, turns into p-value errors of
+    1e-2; λ enters only at second order (it is a stationary point)."""
+    dt = data.eval.dtype
+    if dt == torch.float64:
+        l1, l0 = logf_H1, logl_H0
+    else:
+        d64 = data._replace(eval=data.eval.double(), UtWy=data.UtWy.double(),
+                            Utx=data.Utx.double())
+        l1 = logf_stable(lam.double(), d64, n_cvt, False, False)
+        l0 = logf_stable(l_mle_null.double().reshape(1), d64, n_cvt, True,
+                         False)[0]
+    p = chisq_sf(2.0 * (l1 - l0), 1.0)
+    return l1.to(dt), p.to(dt)
+
+
+def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
+                     l_mle_null, logl_H0):
+    """K6 on the card: twice in speed mode (the null lane, then the
+    SNPs), once in parity mode."""
+    kernels.check_n_cvt(n_cvt)
+    S, n = data.Utx.shape
+    dt = data.eval.dtype
+    dev = data.Utx.device
+    f64 = torch.float64
+    l1 = torch.empty(S, dtype=f64, device=dev)
+    p = torch.empty(S, dtype=f64, device=dev)
+    if dt == torch.float32:
+        kernels.check_operand(lam, "lam", dt, (S,))
+        kernels.check_operand(data.eval, "eval", dt, (n,))
+        kernels.check_operand(data.UtWy, "UtWy", dt, (n, n_cvt + 1))
+        kernels.check_operand(data.Utx, "Utx", dt, (S, n))
+        lam0 = l_mle_null.reshape(1).contiguous()
+        kernels.check_operand(lam0, "l_mle_null", dt, (1,))
+        c = logf_const(n, n_cvt, False, False)   # ML: no calc_null term
+        l0 = torch.empty(1, dtype=f64, device=dev)
+        ptrs = (data.eval.data_ptr(), data.UtWy.data_ptr(),
+                data.Utx.data_ptr())
+        kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam0.data_ptr(), *ptrs,
+                                n_cvt, 1, n, 1, c, None, None,
+                                l0.data_ptr(), None)
+        kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam.data_ptr(), *ptrs,
+                                n_cvt, S, n, 0, c, None, l0.data_ptr(),
+                                l1.data_ptr(), p.data_ptr())
+    elif dt == f64:
+        kernels.check_operand(logf_H1, "logf_H1", dt, (S,))
+        l0 = logl_H0.reshape(1).contiguous()
+        kernels.check_operand(l0, "logl_H0", dt, (1,))
+        kernels.LRT_TAIL.launch(
+            dev, LRT_TAIL_ONLY, None, None, None, None, n_cvt, S, n, 0, 0.0,
+            logf_H1.data_ptr(), l0.data_ptr(), l1.data_ptr(), p.data_ptr())
+    else:
+        raise TypeError(f"lrt_tail takes float32 or float64, got {dt}")
+    return l1.to(dt), p.to(dt)
+
+
+def lrt_pvalues(lam, logf_H1, data: LmmBatchData, n_cvt: int, l_mle_null,
+                logl_H0):
+    """logl_H1 and p_lrt of every lane from its ML fit (λ_mle, logf_H1)
+    and the null model's (l_mle_null, logl_H0) (K6 on the card)."""
+    if data.Utx.device.type == "cpu":
+        return lrt_pvalues_plain(lam, logf_H1, data, n_cvt, l_mle_null,
+                                 logl_H0)
+    return lrt_pvalues_cuda(lam, logf_H1, data, n_cvt, l_mle_null, logl_H0)

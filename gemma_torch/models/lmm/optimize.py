@@ -20,11 +20,13 @@ gemma_tpu/models/lmm/optimize.py does:
      unconditionally, later ones on strict improvement), then compare
      with the endpoints l_min/l_max on strict improvement.
 
-The float64 branch is plain PyTorch and runs on the CPU in this slice.
 In float32 on the card the grid epilogue is kernel K2 and everything
 after the grid scan — brackets, Newton over dev12, logf_stable at the
 candidates and the endpoints — is kernel K3 (csrc/lambda_solve.cu), one
-thread block per SNP; `lambda_solve_plain` is its plain version.
+thread block per SNP; `lambda_solve_plain` is its plain version.  In
+float64 on the card the whole search — the per-point dev1 scan, Brent,
+Newton, the Pab-form logf — is kernel K7 (csrc/lambda_solve_f64.cu), one
+thread block per SNP; `lambda_solve_f64_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -351,24 +353,61 @@ def lambda_solve(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
                              l_min, l_max, n_region)
 
 
+def lambda_solve_f64_plain(data: lk.LmmBatchData, n_cvt: int,
+                           calc_null: bool, reml: bool, l_min: float,
+                           l_max: float, n_region: int) -> LambdaResult:
+    """PyTorch version of K7: the float64 search with GSL semantics."""
+    fine_np = fine_grid(l_min, l_max, n_region, 1)
+    S = data.Utx.shape[0]
+    dtype, dev = data.eval.dtype, data.eval.device
+    d1f = torch.stack([
+        lk.dev1(torch.full((S,), float(g), dtype=dtype, device=dev),
+                data, n_cvt, calc_null, reml) for g in fine_np])
+    return _bracket_search(d1f, fine_np, data, n_cvt, calc_null, reml,
+                           l_min, l_max, n_region, 1, strict=True)
+
+
+def lambda_solve_f64_cuda(data: lk.LmmBatchData, n_cvt: int,
+                          calc_null: bool, reml: bool, l_min: float,
+                          l_max: float, n_region: int) -> LambdaResult:
+    """K7 on the card."""
+    kernels.check_n_cvt(n_cvt)
+    S, n = data.Utx.shape
+    M = data.wy_prod.shape[1]
+    f64 = torch.float64
+    kernels.check_operand(data.eval, "eval", f64, (n,))
+    kernels.check_operand(data.UtWy, "UtWy", f64, (n, n_cvt + 1))
+    kernels.check_operand(data.wy_prod, "wy_prod", f64, (n, M))
+    kernels.check_operand(data.Utx, "Utx", f64, (S, n))
+    kernels.check_operand(data.iab_logdiag, "iab_logdiag", f64,
+                          (S, n_cvt + 1))
+    dev = data.Utx.device
+    grid = torch.as_tensor(fine_grid(l_min, l_max, n_region, 1), dtype=f64,
+                           device=dev)
+    tab = kernels.pab_tables(n_cvt, str(dev))
+    lam = torch.empty(S, dtype=f64, device=dev)
+    logf = torch.empty_like(lam)
+    kernels.LAMBDA_SOLVE_F64.launch(
+        dev, grid.data_ptr(), n_region, data.eval.data_ptr(),
+        data.UtWy.data_ptr(), data.wy_prod.data_ptr(), data.Utx.data_ptr(),
+        data.iab_logdiag.data_ptr(), tab.data_ptr(), n_cvt, S, n, M,
+        int(calc_null), int(reml), float(l_min), float(l_max),
+        _BRENT_EPSREL, _NEWTON_EPSREL, _BRENT_MAX_ITER, _NEWTON_MAX_ITER,
+        lk.logf_const(n, n_cvt, calc_null, reml), lam.data_ptr(),
+        logf.data_ptr())
+    return LambdaResult(lam=lam, logf=logf)
+
+
 def calc_lambda(data: lk.LmmBatchData, n_cvt: int, calc_null: bool,
                 reml: bool, l_min: float, l_max: float,
                 n_region: int) -> LambdaResult:
     """Batched equivalent of GEMMA CalcLambda over a SNP block."""
-    dtype, dev = data.eval.dtype, data.eval.device
-    strict = dtype == torch.float64
-    if strict:
-        if dev.type == "cuda":
-            raise NotImplementedError(
-                "the float64 λ search has no kernels yet (ROADMAP.md, "
-                "queue B \"f64 kernels\")")
-        fine_np = fine_grid(l_min, l_max, n_region, 1)
-        S = data.Utx.shape[0]
-        d1f = torch.stack([
-            lk.dev1(torch.full((S,), float(g), dtype=dtype, device=dev),
-                    data, n_cvt, calc_null, reml) for g in fine_np])
-        return _bracket_search(d1f, fine_np, data, n_cvt, calc_null, reml,
-                               l_min, l_max, n_region, 1, strict=True)
+    if data.eval.dtype == torch.float64:
+        if data.eval.device.type == "cpu":
+            return lambda_solve_f64_plain(data, n_cvt, calc_null, reml,
+                                          l_min, l_max, n_region)
+        return lambda_solve_f64_cuda(data, n_cvt, calc_null, reml, l_min,
+                                     l_max, n_region)
     fine_np = fine_grid(l_min, l_max, n_region, _F32_GRID_REFINE)
     d1f = lk.dev1_grid(fine_np, data, n_cvt, calc_null, reml)
     return lambda_solve(d1f, fine_np, data, n_cvt, calc_null, reml,

@@ -29,3 +29,12 @@ def eigh_zeroed(G: torch.Tensor, with_raw: bool = False):
     eval_ = torch.where(raw < EIGEN_MINVALUE, torch.zeros_like(raw), raw)
     out = (eval_, U, eval_.mean())
     return out + (raw,) if with_raw else out
+
+
+def zero_eigenvalues(eval_: torch.Tensor):
+    """Apply the <1e-10 → 0 rule to externally loaded eigenvalues (the
+    -u/-d path, gemma.cpp:2661-2668); the trace is the mean of the
+    zeroed values."""
+    eval_ = torch.where(eval_ < EIGEN_MINVALUE, torch.zeros_like(eval_),
+                        eval_)
+    return eval_, eval_.mean()

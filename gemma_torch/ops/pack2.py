@@ -12,8 +12,9 @@ all-missing.
 float with NaN missing — into the float GEMM operand in one pass: the
 mean-imputed rows the association rotation reads, or the centred
 (optionally standardised) rows the kinship product reads.  On a CUDA
-tensor it launches kernel K1 (csrc/geno_prologue.cu); on a CPU tensor
-it runs `prologue_plain`, the same arithmetic in PyTorch.
+tensor it launches kernel K1 (csrc/geno_prologue.cu), in float32 (speed
+mode) or float64 (parity mode); on a CPU tensor it runs
+`prologue_plain`, the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
@@ -92,20 +93,25 @@ def prologue_plain(raw: torch.Tensor, n: int, mode: int, scale: bool,
     return x
 
 
-_WIRES = {torch.uint8: 0, torch.int8: 1, torch.float32: 2}
+_WIRES = {torch.uint8: 0, torch.int8: 1, torch.float32: 2, torch.float64: 3}
 
 
 def prologue_cuda(raw: torch.Tensor, n: int, mode: int, scale: bool,
-                  n_total: int | None) -> torch.Tensor:
-    """K1 on the card: float32 operand (S, n) from a raw CUDA block."""
-    if raw.dtype not in _WIRES:
-        raise TypeError(f"geno_prologue takes uint8/int8/float32 blocks, "
-                        f"got {raw.dtype}")
+                  n_total: int | None,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K1 on the card: (S, n) operand in `dtype` from a raw CUDA block.
+    The float32 kernel reads uint8/int8/float32 wires, the float64
+    instantiation uint8/int8/float64."""
+    kern = kernels.variant(kernels.GENO_PROLOGUE, kernels.GENO_PROLOGUE_F64,
+                           dtype)
+    if raw.dtype not in (torch.uint8, torch.int8, dtype):
+        raise TypeError(f"{kern.name} takes uint8/int8/{dtype} blocks, got "
+                        f"{raw.dtype}")
     S = raw.shape[0]
     width = packed_width(n) if raw.dtype == torch.uint8 else n
     kernels.check_operand(raw, "raw", raw.dtype, (S, width))
-    out = torch.empty((S, n), dtype=torch.float32, device=raw.device)
-    kernels.GENO_PROLOGUE.launch(
+    out = torch.empty((S, n), dtype=dtype, device=raw.device)
+    kern.launch(
         raw.device, raw.data_ptr(), _WIRES[raw.dtype], S, n, width, mode,
         int(bool(scale)), n if n_total is None else int(n_total),
         out.data_ptr())
@@ -123,6 +129,4 @@ def prologue(raw: torch.Tensor, n: int, mode: int, scale: bool = False,
     (kinship.py:32-61 of the reference).  All-missing rows → zeros."""
     if raw.device.type == "cpu":
         return prologue_plain(raw, n, mode, scale, n_total, dtype)
-    if dtype != torch.float32:
-        raise TypeError("geno_prologue writes float32 operands on cuda")
-    return prologue_cuda(raw, n, mode, scale, n_total)
+    return prologue_cuda(raw, n, mode, scale, n_total, dtype)

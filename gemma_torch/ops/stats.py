@@ -1,12 +1,17 @@
-"""Survival function of the F distribution (gsl_cdf_fdist_Q).
+"""Survival functions of the F and chi-square distributions
+(gsl_cdf_fdist_Q, gsl_cdf_chisq_Q).
 
 torch has no regularised incomplete beta, so `betainc` here is the
 Lentz continued fraction (Numerical Recipes `betacf`), written as masked
 vectorised PyTorch and evaluated in float64 whatever the input dtype.
-Kernel K4 (csrc/wald_tail.cu) runs the same continued fraction as a
-device function; this is its plain version.
+`gammaincc` is the regularised upper incomplete gamma Q(a, x) the same
+way: the series for x < a + 1 and the Lentz continued fraction, which
+gives Q itself (not 1 − P), otherwise.  The kernels run the same
+functions as device code (csrc/tails.cuh: K4, K5 and K6); these are
+their plain versions.
 
-Domain conventions follow GSL: f_sf(x <= 0) == 1.
+Domain conventions follow GSL: f_sf(x <= 0) == 1, chisq_sf(x <= 0) == 1
+(gamma_Q returns 1 for x <= 0).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import torch
 
 _BETACF_MAXIT = 1000
 _BETACF_EPS = 1e-15
+_GAMMA_MAXIT = 1000
+_GAMMA_EPS = 1e-15
 _FPMIN = 1e-300
 
 
@@ -82,3 +89,66 @@ def f_sf(x: torch.Tensor, d1: float, d2: float) -> torch.Tensor:
     q = torch.where(xt <= 0.5, q_direct, q_comp)
     q = torch.where(xd <= 0.0, torch.ones_like(q), q)
     return q.to(x.dtype)
+
+
+def gammaincc(a, x: torch.Tensor) -> torch.Tensor:
+    """Regularised upper incomplete gamma Q(a, x), float64; Q(a, x <= 0)
+    = 1, Q(a, inf) = 0, NaN stays NaN.  Each lane stops where its
+    sequential loop would (GSL/Numerical Recipes gser and gcf)."""
+    x = x.to(torch.float64)
+    a = torch.as_tensor(a, dtype=torch.float64, device=x.device).expand_as(x)
+    ok = (x > 0.0) & torch.isfinite(x)
+    series = ok & (x < a + 1.0)
+    frac = ok & ~series
+    xs = torch.where(ok, x, torch.ones_like(x))
+    lpre = -xs + a * torch.log(xs) - torch.lgamma(a)
+
+    # series for P(a, x), then Q = 1 - P
+    ap = a.clone()
+    dl = 1.0 / a
+    total = dl.clone()
+    live = series.clone()
+    for _ in range(_GAMMA_MAXIT):
+        if not bool(live.any()):
+            break
+        ap = torch.where(live, ap + 1.0, ap)
+        dl = torch.where(live, dl * (xs / ap), dl)
+        total = torch.where(live, total + dl, total)
+        live = live & ~(dl.abs() < total.abs() * _GAMMA_EPS)
+    q_series = 1.0 - total * torch.exp(lpre)
+
+    # Lentz continued fraction for Q(a, x)
+    fpmin = torch.full_like(x, _FPMIN)
+
+    def fix(v):
+        return torch.where(v.abs() < _FPMIN, fpmin, v)
+
+    b = xs + 1.0 - a
+    c = torch.full_like(x, 1.0 / _FPMIN)
+    d = 1.0 / b
+    h = d.clone()
+    live = frac.clone()
+    for i in range(1, _GAMMA_MAXIT + 1):
+        if not bool(live.any()):
+            break
+        an = -i * (i - a)
+        b = torch.where(live, b + 2.0, b)
+        d1 = 1.0 / fix(an * d + b)
+        c1 = fix(b + an / c)
+        delta = d1 * c1
+        h = torch.where(live, h * delta, h)
+        d = torch.where(live, d1, d)
+        c = torch.where(live, c1, c)
+        live = live & ~((delta - 1.0).abs() < _GAMMA_EPS)
+    q_frac = torch.exp(lpre) * h
+
+    out = torch.where(series, q_series, q_frac)
+    out = torch.where(x <= 0.0, torch.ones_like(out), out)
+    out = torch.where(torch.isinf(x) & (x > 0), torch.zeros_like(out), out)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def chisq_sf(x: torch.Tensor, df: float) -> torch.Tensor:
+    """Q(x) of chi-square(df) = Q(df/2, x/2), matching gsl_cdf_chisq_Q,
+    in x's dtype (computed in float64)."""
+    return gammaincc(0.5 * df, 0.5 * x.to(torch.float64)).to(x.dtype)

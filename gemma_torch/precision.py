@@ -1,8 +1,9 @@
 """Precision policy.
 
 GEMMA computes everything in float64.  On the card float32 is the
-speed mode (the accelerator default); float64 is the reference-parity
-mode and, in this slice of the port, runs on the CPU only.
+speed mode (the default there); float64 is the reference-parity mode,
+on the card (the float64 kernels: K1/K4/K5 instantiations and K7) or on
+the CPU.
 
 Every numerical entry point takes an explicit torch dtype; nothing
 relies on `torch.get_default_dtype()`.
@@ -16,21 +17,13 @@ import torch
 def resolve_dtype(precision: str, device: torch.device) -> torch.dtype:
     """Map a config string to a torch dtype for `device`.
 
-    "auto" selects float32 on cuda and float64 on cpu.  float64 on
-    cuda raises: the strict float64 λ search (Brent, per-point dev1,
-    the Pab logf) has no kernels yet (ROADMAP.md, queue B "f64
-    kernels")."""
+    "auto" selects float32 on cuda and float64 on cpu."""
     device = torch.device(device)
     if precision == "auto":
         return torch.float32 if device.type == "cuda" else torch.float64
     if precision == "float32":
         return torch.float32
     if precision == "float64":
-        if device.type == "cuda":
-            raise NotImplementedError(
-                "-precision float64 on cuda: the strict float64 λ search "
-                "has no kernels yet (ROADMAP.md, queue B \"f64 kernels\"); "
-                "run the parity mode with -device cpu")
         return torch.float64
     raise ValueError(f"unknown precision {precision!r}")
 

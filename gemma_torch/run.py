@@ -1,9 +1,11 @@
 """Analysis drivers — the BatchRun analogue (gemma.cpp:1641-3144).
 
-This slice of the port runs GEMMA's main path: `-gk 1|2` (kinship) and
-`-k K -lmm 1` (Wald association), on one device.  Each `run_*` wires the
-dataset through the device code and writes GEMMA-compatible files;
-`batch_run` dispatches on a_mode like the reference's if-chain.
+The port runs `-gk 1|2` (kinship), `-eigen`, and the univariate LMM
+`-lmm 1/2/3/4/5/9` from `-k` or `-u/-d`, with `-widv` residual weights,
+on one device, in float32 (speed mode) or float64 (parity mode).  Each
+`run_*` wires the dataset through the device code and writes
+GEMMA-compatible files; `batch_run` dispatches on a_mode like the
+reference's if-chain.
 
 Entry points run on `cuda` unless the caller asks for the CPU
 (`device="cpu"`, or `-device cpu` on the command line).  Without a card
@@ -18,13 +20,14 @@ import torch
 from gemma_torch import precision
 from gemma_torch.config import GemmaConfig, check_param
 from gemma_torch.dataset import Dataset, load_dataset
-from gemma_torch.io.readers import read_kinship
+from gemma_torch.io.readers import read_eigen_d, read_eigen_u, read_kinship
 from gemma_torch.io.writers import (
-    write_matrix, write_lmm_assoc, snp_rows_from_table, ensure_outdir,
+    write_matrix, write_vector, write_lmm_assoc, snp_rows_from_table,
+    ensure_outdir,
 )
 from gemma_torch.models.lmm.engine import assoc_block_impl, fit_null
 from gemma_torch.ops.center import center_matrix
-from gemma_torch.ops.eigh import eigh_zeroed
+from gemma_torch.ops.eigh import eigh_zeroed, zero_eigenvalues
 from gemma_torch.ops.kinship import KinshipAccumulator
 from gemma_torch.ops.pack2 import IMPUTE, PAD_BYTE, pack_bed_codes, prologue
 from gemma_torch.utils.log import RunLog
@@ -32,9 +35,6 @@ from gemma_torch.utils.validate import check_finite, validate_kinship
 
 # analysis modes outside this slice → their ROADMAP.md queue entry
 _NOT_PORTED = {
-    (2, 3, 4, 9): "queue A, \"-lmm 2/3/4/9\"",
-    (5,): "queue A, \"rest of run_lmm\" (-lmm 5)",
-    (31,): "queue A, \"-eigen and -u/-d\"",
     (51, 52, 53, 54): "queue A, \"-lm\"",
     (11, 12, 13, 14, 15, 41, 42, 43): "queue A, \"BSLMM and prediction\"",
     (25, 26, 27, 28, 61, 62, 63, 66, 67, 71, 72):
@@ -185,13 +185,21 @@ def run_gk(cfg: GemmaConfig, log: RunLog | None = None,
 
 
 # ---------------------------------------------------------------------------
-# -lmm 1: univariate association
+# eigendecomposition: shared by -eigen and -lmm
 
 def _load_or_compute_eigen(cfg: GemmaConfig, ds: Dataset, log: RunLog,
                            dtype: torch.dtype, device: torch.device):
-    """Read K (-k), double-centre it, eigendecompose on the device.
+    """Load -u/-d eigen files; or read K (-k), double-centre it, apply
+    the -widv residual weights and eigendecompose on the device.
 
     Returns (eval, U, trace_G) in `dtype` (gemma.cpp:2584-2669)."""
+    if cfg.file_ku and cfg.file_kd:
+        with log.timer.phase("kread"):
+            U = torch.as_tensor(read_eigen_u(cfg.file_ku), dtype=dtype,
+                                device=device)
+            eval_, trace_G = zero_eigenvalues(torch.as_tensor(
+                read_eigen_d(cfg.file_kd), dtype=dtype, device=device))
+        return eval_, U, trace_G
     if not cfg.file_kin:
         raise ValueError("LMM requires -k kinship or -u/-d eigen files")
     with log.timer.phase("kread"):
@@ -201,6 +209,17 @@ def _load_or_compute_eigen(cfg: GemmaConfig, ds: Dataset, log: RunLog,
         check_finite("kinship matrix (-k)", K)
     with log.timer.phase("eigen"):
         Kc = center_matrix(torch.as_tensor(K, dtype=dtype, device=device))
+        sw = None
+        if ds.weights is not None:
+            # residual weights (-widv): K_ij /= sqrt(w_i w_j), then U's
+            # rows times sqrt(w_i); zero weights zero their row and
+            # column (gemma.cpp:2599-2644)
+            w = torch.as_tensor(ds.weights, dtype=dtype, device=device)
+            sw = torch.sqrt(w.clamp(min=0.0))
+            denom = sw[:, None] * sw[None, :]
+            Kc = torch.where(denom > 0, Kc / torch.where(
+                denom > 0, denom, torch.ones_like(denom)),
+                torch.zeros_like(Kc))
         if cfg.check:
             max_asym = float((Kc - Kc.T).abs().max())
             eval_, U, trace_G, raw_w = eigh_zeroed(Kc, with_raw=True)
@@ -208,10 +227,36 @@ def _load_or_compute_eigen(cfg: GemmaConfig, ds: Dataset, log: RunLog,
                              strict=cfg.strict, max_asym=max_asym)
         else:
             eval_, U, trace_G = eigh_zeroed(Kc)
+        if sw is not None:
+            U = U * sw[:, None]
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     return eval_, U, trace_G
 
+
+def run_eigen(cfg: GemmaConfig, log: RunLog | None = None,
+              device: str | torch.device = "cuda") -> None:
+    """-eigen: write eigenU/eigenD of the centred kinship matrix
+    (gemma.cpp:2584-2669 with the write of param.cpp:1886)."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    eval_, U, _ = _load_or_compute_eigen(cfg, ds, log, dtype, device)
+    ensure_outdir(cfg.path_out)
+    with log.timer.phase("readback"):
+        Uh = U.cpu().numpy().astype(np.float64)
+        eh = eval_.cpu().numpy().astype(np.float64)
+    with log.timer.phase("write"):
+        write_matrix(f"{cfg.out_prefix()}.eigenU.txt", Uh, sidecar=True)
+        write_vector(f"{cfg.out_prefix()}.eigenD.txt", eh)
+    _summary(log, ds, cfg, ds.n_cvt, ds.qc.ns_test)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+
+
+# ---------------------------------------------------------------------------
+# -lmm: univariate association
 
 _STAT_NAMES = ("beta", "se", "lambda_remle", "lambda_mle", "p_wald",
                "p_lrt", "p_score", "logl_H1")
@@ -219,14 +264,15 @@ _STAT_NAMES = ("beta", "se", "lambda_remle", "lambda_mle", "p_wald",
 
 def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
             device: str | torch.device = "cuda") -> dict:
-    """Univariate LMM association, -lmm 1 (Wald), for one phenotype."""
+    """Univariate LMM association (-lmm 1/2/3/4/9), or the residual
+    decomposition (-lmm 5), for one phenotype."""
     device = torch.device(device)
     dtype = precision.resolve_dtype(cfg.precision, device)
     log = log or RunLog(argv=["gemma_torch"], device=device)
-    if cfg.a_mode != 1:
-        raise _not_ported(f"-lmm {cfg.a_mode}", "queue A, \"-lmm 2/3/4/9\"")
-    for flag, on in (("-u/-d", cfg.file_ku or cfg.file_kd),
-                     ("-widv", cfg.file_weight), ("-loco", cfg.loco),
+    if cfg.a_mode not in (1, 2, 3, 4, 5, 9):
+        raise ValueError(f"run_lmm runs -lmm 1-5 and 9, not {cfg.a_mode}")
+    for flag, on in (("-loco", cfg.loco), ("-ksnps", cfg.file_ksnps),
+                     ("-gwasnps", cfg.file_gwasnps),
                      ("-gxe", cfg.file_gxe), ("-gene", cfg.file_gene)):
         if on:
             raise _not_ported(flag, "queue A, \"rest of run_lmm\"")
@@ -253,6 +299,25 @@ def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
         beta_remle_null=nf.beta_remle.cpu().double().numpy().tolist(),
         se_beta_remle_null=nf.se_beta_remle.cpu().double().numpy().tolist(),
     )
+
+    if cfg.a_mode == 5:
+        # -lmm 5 writes only the residual decomposition, and runs no
+        # association (gemma.cpp:2756-2796)
+        y_hat = Uty - UtW @ nf.beta_remle
+        lam = nf.l_remle
+        u_rot = lam * eval_ / (lam * eval_ + 1.0) * y_hat
+        e_rot = 1.0 / (lam * eval_ + 1.0) * y_hat
+        ensure_outdir(cfg.path_out)
+        with log.timer.phase("write"):
+            for name, v in (("residU", U @ u_rot), ("residE", U @ e_rot)):
+                write_vector(f"{cfg.out_prefix()}.{name}.txt",
+                             v.cpu().numpy().astype(np.float64))
+        log.summary["number of total individuals"] = ds.ni_total
+        log.summary["number of analyzed individuals"] = ds.ni_test
+        log.summary["number of covariates"] = n_cvt
+        log.summary["number of phenotypes"] = cfg.n_ph
+        log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+        return dict(null=nf, dataset=ds)
 
     idx = np.flatnonzero(ds.qc.indicator_snp)      # file order
     n = ds.ni_test
@@ -304,7 +369,9 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
     log = RunLog(argv=argv or ["gemma_torch"], quiet=cfg.quiet, device=dev)
     if cfg.a_mode in (21, 22):
         run_gk(cfg, log, dev)
-    elif cfg.a_mode == 1:
+    elif cfg.a_mode == 31:
+        run_eigen(cfg, log, dev)
+    elif cfg.a_mode in (1, 2, 3, 4, 5, 9):
         run_lmm(cfg, log, dev)
     else:
         for modes, entry in _NOT_PORTED.items():

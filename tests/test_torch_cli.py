@@ -161,14 +161,17 @@ def test_lmm1_float32_port_within_contract(bimbam):
 
 
 @pytest.mark.parametrize("flags,entry", [
-    ("-lmm 2", "-lmm 2/3/4/9"),
-    ("-lmm 4", "-lmm 2/3/4/9"),
-    ("-eigen", "-eigen"),
+    ("-lmm 1 -gxe {td}/env.txt", "rest of run_lmm"),
+    ("-lmm 4 -gene {td}/env.txt", "rest of run_lmm"),
+    ("-bslmm 1", "BSLMM and prediction"),
     ("-lm 1", "-lm"),
 ])
 def test_modes_outside_the_slice_raise(bimbam, flags, entry):
     td, (geno, pheno) = bimbam
-    argv = f"-g {geno} -p {pheno} -k {td}/none.txt {flags} -outdir {td}"
+    with open(f"{td}/env.txt", "w") as fh:
+        fh.write("1.0\n" * N)
+    argv = (f"-g {geno} -p {pheno} -k {td}/none.txt "
+            f"{flags.format(td=td)} -outdir {td}")
     cfg = torch_parse(argv.split())
     cfg.file_kin = ""
     with pytest.raises(NotImplementedError, match=re.escape(entry)):
@@ -176,6 +179,11 @@ def test_modes_outside_the_slice_raise(bimbam, flags, entry):
 
 
 def test_float64_on_cuda_raises_not_implemented():
+    """-precision float64 resolves to float64 on cuda too: the parity
+    mode runs on the card (K7 and the float64 instantiations)."""
+    import torch
     from gemma_torch.precision import resolve_dtype
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_dtype("float64", "cuda")
+    assert resolve_dtype("float64", "cuda") == torch.float64
+    assert resolve_dtype("auto", "cuda") == torch.float32
+    with pytest.raises(ValueError, match="unknown precision"):
+        resolve_dtype("float16", "cuda")

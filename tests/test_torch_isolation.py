@@ -75,3 +75,30 @@ def test_wrappers_send_cpu_tensors_to_plain_versions():
     out = pack2.prologue(raw, 4, pack2.IMPUTE, dtype=torch.float64)
     assert out.tolist() == [[0.0, 1.0, 2.0, 1.0]]
     assert all(k.launches == 0 for k in kernels.ALL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lmm_wrappers_send_cpu_tensors_to_plain_versions(dtype):
+    """The score, LRT and λ-search wrappers on CPU tensors, float32 and
+    float64: plain versions only, no kernel built or launched."""
+    import numpy as np
+    from gemma_torch import kernels
+    from gemma_torch.models.lmm import likelihood as lk
+    from gemma_torch.models.lmm.engine import assoc_block_impl, fit_null
+    rng = np.random.default_rng(0)
+    n, S = 30, 4
+    ev = torch.as_tensor(np.sort(rng.uniform(0, 2, n)), dtype=dtype)
+    UtW = torch.as_tensor(rng.normal(size=(n, 1)), dtype=dtype)
+    Uty = torch.as_tensor(rng.normal(size=n), dtype=dtype)
+    Utx = torch.as_tensor(rng.normal(size=(S, n)), dtype=dtype)
+    kernels.reset_launches()
+    nf = fit_null(ev, UtW, Uty, ev.mean(), 1)
+    st = assoc_block_impl(ev, UtW, Uty, Utx, nf.l_mle, nf.logl_mle,
+                          n_cvt=1, mode=4)
+    assert all(k.launches == 0 for k in kernels.ALL)
+    for f in ("p_wald", "p_lrt", "p_score"):
+        p = getattr(st, f)
+        assert p.dtype == dtype and p.shape == (S,)
+        assert bool(((p >= 0) & (p <= 1)).all())
+    assert lk.score_pvalues(nf.l_mle, lk.build_batch_data(
+        ev, UtW, Uty, Utx, 1), 1)[2].dtype == dtype

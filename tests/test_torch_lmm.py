@@ -273,11 +273,13 @@ def test_assoc_block_mode1_matches_reference(prob, prec):
 
 
 def test_other_modes_raise(prob):
+    """assoc_block_impl runs -lmm 1/2/3/4/9; -lmm 5 writes residuals in
+    run_lmm and never reaches it."""
     n_cvt, p = prob
     st = state_from_numpy(p["eval_"], p["UtW"], p["Uty"], n_cvt=n_cvt,
                           Utx=p["Utx"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="-lmm 1/2/3/4/9"):
         assoc_block_impl(st.eval, st.UtW, st.Uty, st.data.Utx,
                          torch.tensor(1.0, dtype=torch.float64),
                          torch.tensor(0.0, dtype=torch.float64),
-                         n_cvt=n_cvt, mode=2)
+                         n_cvt=n_cvt, mode=5)

@@ -8,7 +8,10 @@ on the card by chip_smoke.py).  Tolerances:
   * kinship: rel 1e-10 (one product, summed in another order);
   * eigenvalues: 1e-9 relative to the spectral radius (two LAPACK
     drivers);
-  * f_sf: abs 1e-10 against the reference and against scipy.
+  * f_sf: abs 1e-10 against the reference and against scipy;
+  * chisq_sf: abs 1e-9 against the reference, rel 1e-10 against scipy
+    over x in [1e-8, 1400] (down to p ~ 1e-306: the continued fraction
+    gives Q itself, not 1 − P).
 """
 
 import numpy as np
@@ -22,12 +25,13 @@ from gemma_tpu.ops import kinship as tpu_kinship
 from gemma_tpu.ops import pack2 as tpu_pack2
 from gemma_tpu.ops import stats as tpu_stats
 from gemma_tpu.ops.eigh import eigh_zeroed as tpu_eigh_zeroed
+from gemma_tpu.ops.eigh import zero_eigenvalues as tpu_zero_eigenvalues
 from gemma_tpu.parallel.shard import impute_rows as tpu_impute_rows
 from gemma_torch.ops import pack2
 from gemma_torch.ops.center import center_matrix
-from gemma_torch.ops.eigh import eigh_zeroed
+from gemma_torch.ops.eigh import eigh_zeroed, zero_eigenvalues
 from gemma_torch.ops.kinship import KinshipAccumulator, center_genotype_block
-from gemma_torch.ops.stats import betainc, f_sf
+from gemma_torch.ops.stats import betainc, chisq_sf, f_sf
 
 F64 = torch.float64
 
@@ -168,3 +172,28 @@ def test_betainc_saturating_tail():
     assert q.dtype == torch.float32
     assert float(q) == pytest.approx(
         scipy.special.fdtrc(1.0, 766.0, float(f)), abs=1e-6)
+
+
+def test_chisq_sf_matches_reference_and_scipy():
+    import scipy.stats
+    x = np.concatenate([np.logspace(-8, np.log10(1400.0), 400),
+                        [1.5, 3.0, 1399.999]])
+    ours = chisq_sf(torch.from_numpy(x), 1.0).numpy()
+    np.testing.assert_allclose(ours, scipy.stats.chi2.sf(x, 1), rtol=1e-10,
+                               atol=0)
+    ref = np.asarray(tpu_stats.chisq_sf(jnp.asarray(x), 1.0))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-9)
+    edge = torch.tensor([-1.0, 0.0, np.inf, np.nan], dtype=F64)
+    out = chisq_sf(edge, 1.0).numpy()
+    np.testing.assert_array_equal(out[:3], [1.0, 1.0, 0.0])
+    assert np.isnan(out[3])
+    f = chisq_sf(torch.tensor([2.5], dtype=torch.float32), 1.0)
+    assert f.dtype == torch.float32
+
+
+def test_zero_eigenvalues_matches_reference():
+    ev = np.array([-1e-3, -1e-12, 0.0, 5e-11, 1e-10, 0.3, 2.5])
+    a, ta = tpu_zero_eigenvalues(jnp.asarray(ev))
+    b, tb = zero_eigenvalues(torch.from_numpy(ev))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert float(tb) == pytest.approx(float(ta), rel=1e-15)
