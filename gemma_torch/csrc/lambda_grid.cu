@@ -7,7 +7,10 @@
 // card, laid out so this kernel reads them coalesced:
 //   xcross (2, G, c+1, S) = (hi^p ⊙ UtWy)ᵀ Utxᵀ,   xx (2, G, S) = hi^pᵀ (Utx²)ᵀ,
 // plus the x-free {W,y} rows shared (2, G, m_wy), trace_hi (G) and the
-// grid λ (G).  Output d1f (G, S).
+// grid λ (G).  Output d1f (G, S).  With per-lane operands (GxE: each
+// SNP's covariates hold its x; gene mode: each gene is a response) the
+// x-free rows are per lane too, shared (2, G, m_wy, S), read coalesced
+// like xcross (wy_lane = 1).
 //
 // One thread per (grid point g, SNP s), s fastest: it assembles row 0 of
 // both weight powers from the products, runs the two recurrences in
@@ -25,7 +28,8 @@ __global__ void lambda_grid_kernel(const float* __restrict__ xcross,
                                    const float* __restrict__ lam,
                                    const int* __restrict__ tab, int n_cvt,
                                    int S, int G, int M, int n,
-                                   int calc_null, int reml, float* d1f) {
+                                   int calc_null, int reml, int wy_lane,
+                                   float* d1f) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int g = blockIdx.y;
   if (s >= S) return;
@@ -41,7 +45,10 @@ __global__ void lambda_grid_kernel(const float* __restrict__ xcross,
     const int kind = t.kind[k];
     const int col = t.col[k];
     float v0, v1;
-    if (kind == 0) {
+    if (kind == 0 && wy_lane) {
+      v0 = shared[(((long)0 * G + g) * M + col) * S + s];
+      v1 = shared[(((long)1 * G + g) * M + col) * S + s];
+    } else if (kind == 0) {
       v0 = shared[((long)0 * G + g) * M + col];
       v1 = shared[((long)1 * G + g) * M + col];
     } else if (kind == 1) {
@@ -84,14 +91,14 @@ extern "C" int lambda_grid_launch(const void* xcross, const void* xx,
                                   const void* shared, const void* trace_hi,
                                   const void* lam, const void* tab,
                                   int n_cvt, int S, int G, int M, int n,
-                                  int calc_null, int reml, void* d1f,
-                                  void* stream) {
+                                  int calc_null, int reml, int wy_lane,
+                                  void* d1f, void* stream) {
   if (S > 0 && G > 0) {
     dim3 grid((S + 127) / 128, G);
     lambda_grid_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const float*)xcross, (const float*)xx, (const float*)shared,
         (const float*)trace_hi, (const float*)lam, (const int*)tab, n_cvt, S,
-        G, M, n, calc_null, reml, (float*)d1f);
+        G, M, n, calc_null, reml, wy_lane, (float*)d1f);
   }
   return (int)cudaGetLastError();
 }

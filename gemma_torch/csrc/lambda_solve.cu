@@ -20,7 +20,9 @@
 // last iterate, fail on a zero derivative, a non-finite value or a step
 // out of (l_min, l_max) that has not converged, stop at 100 iterations,
 // float32 tolerance 5e-4 and the fall-back to the bracket midpoint when
-// Newton fails.
+// Newton fails.  Each lane's UtWy, wy and Utx rows sit at its lane
+// stride (0 where the lanes share them): per-lane covariates for GxE,
+// a per-lane response for gene mode.
 //
 // Bound: the data moved is the lane's Utx row plus eval/UtWy/wy (shared
 // by all lanes, L2-resident); per evaluation the work is O(n·(c+1)²)
@@ -30,24 +32,32 @@
 // slowest one, unlike the lock-step while loops it replaces.
 #include "lmm_lane.cuh"
 
+// T is the working type: float, the arithmetic K3 always ran, for blocks
+// whose lanes share their operands; double (float32 operands, float64
+// sums, Newton to GSL's 1e-5) for per-lane blocks.  There each lane has
+// its own response or covariates and its own null, the likelihood of a
+// gene or a GxE lane is often flat at small λ, and float32 cannot tell
+// its candidates apart: float32 sums left gene-mode p-values up to 1e-2
+// from float64 at n = 1,940 (scripts/lane_f32_gap.py, PERF.md).
+template <typename T>
 __global__ void __launch_bounds__(GT_THREADS)
-lambda_solve_kernel(const float* __restrict__ d1f,
-                    const float* __restrict__ fine, int n_region,
-                    int refine, const float* __restrict__ eval,
+lambda_solve_kernel(const float* __restrict__ d1f, const T* __restrict__ fine,
+                    int n_region, int refine, const float* __restrict__ eval,
                     const float* __restrict__ UtWy,
                     const float* __restrict__ wy,
                     const float* __restrict__ Utx,
                     const int* __restrict__ tab, int n_cvt, int S, int n,
-                    int M, int calc_null, int reml, float l_min, float l_max,
-                    float epsrel, int max_iter, float logf_const,
-                    float* lam_out, float* logf_out) {
-  __shared__ SolveSmem<float> sm;
+                    int M, int calc_null, int reml, int ustride,
+                    int wstride, int xstride, T l_min, T l_max, T epsrel,
+                    int max_iter, T logf_const, float* lam_out,
+                    float* logf_out) {
+  __shared__ SolveSmem<T> sm;
   const int s = blockIdx.x;
-  SolveCtx<float, float> c;
+  SolveCtx<float, T> c;
   c.eval = eval;
-  c.UtWy = UtWy;
-  c.wy = wy;
-  c.x = Utx + (long)s * n;
+  c.UtWy = UtWy + (long)s * ustride;
+  c.wy = wy + (long)s * wstride;
+  c.x = Utx + (long)s * xstride;
   c.t = gt_tables(tab, n_cvt);
   c.n_cvt = n_cvt;
   c.n = n;
@@ -59,35 +69,35 @@ lambda_solve_kernel(const float* __restrict__ d1f,
 
   const int CZ = calc_null ? n_cvt : n_cvt + 1;
   gt_gram_pairs(sm, CZ);
-  const float logdet0 = reml ? gt_logdet0(c, sm, CZ) : 0.f;
+  const T logdet0 = reml ? gt_logdet0(c, sm, CZ) : T(0);
 
   const float* col = d1f + s;  // column s of (G_fine, S)
-  float best_logf = -INFINITY, best_lam = NAN;
+  T best_logf = -INFINITY, best_lam = NAN;
   bool has_cand = false;
   for (int iv = 0; iv < n_region; ++iv) {
-    const float da = col[(long)iv * refine * S];
-    const float db = col[(long)(iv + 1) * refine * S];
-    if (!(da * db <= 0.f)) continue;
+    const T da = col[(long)iv * refine * S];
+    const T db = col[(long)(iv + 1) * refine * S];
+    if (!(da * db <= T(0))) continue;
     int jf = 0;  // argmax of an all-false window is 0
     for (int f = iv * refine; f < (iv + 1) * refine; ++f)
-      if (col[(long)f * S] * col[(long)(f + 1) * S] <= 0.f) {
+      if ((T)col[(long)f * S] * (T)col[(long)(f + 1) * S] <= T(0)) {
         jf = f;
         break;
       }
-    const float root_b = sqrtf(fine[jf] * fine[jf + 1]);
+    const T root_b = gt_sqrt(fine[jf] * fine[jf + 1]);
 
     // Newton on (dev1, dev2), GEMMA exit semantics
-    float x_prev = root_b, x = root_b, fv, dfv;
+    T x_prev = root_b, x = root_b, fv, dfv;
     gt_dev12(c, sm, root_b, &fv, &dfv, 3);
     bool conv = false, failed = false;
     for (int it = 0; it < max_iter && !conv && !failed; ++it) {
-      const bool zero_div = dfv == 0.f;
-      const float step_x = x - fv / (zero_div ? 1.f : dfv);
-      float f_new, df_new;
+      const bool zero_div = dfv == T(0);
+      const T step_x = x - fv / (zero_div ? T(1) : dfv);
+      T f_new, df_new;
       gt_dev12(c, sm, step_x, &f_new, &df_new, 3);
       const bool bad = !isfinite(f_new) || !isfinite(df_new);
       const bool cv =
-          (fabsf(step_x - x) < epsrel * fabsf(step_x)) || (step_x == x);
+          (gt_abs(step_x - x) < epsrel * gt_abs(step_x)) || (step_x == x);
       const bool oob = !((step_x > l_min) && (step_x < l_max));
       const bool fail_now = zero_div || bad || (!cv && oob);
       const bool conv_now = !zero_div && !bad && cv;
@@ -102,17 +112,17 @@ lambda_solve_kernel(const float* __restrict__ d1f,
       conv = conv || conv_now;
       failed = failed || fail_now;
     }
-    const float root_n = conv ? x_prev : root_b;
-    const float l_cand = gt_clip(root_n, l_min, l_max);
-    const float logf_cand = gt_logf_stable(c, sm, l_cand, logdet0);
+    const T root_n = conv ? x_prev : root_b;
+    const T l_cand = gt_clip(root_n, l_min, l_max);
+    const T logf_cand = gt_logf_stable(c, sm, l_cand, logdet0);
     if (!has_cand || logf_cand > best_logf) {
       best_logf = logf_cand;
       best_lam = l_cand;
     }
     has_cand = true;
   }
-  const float logf_lmin = gt_logf_stable(c, sm, l_min, logdet0);
-  const float logf_lmax = gt_logf_stable(c, sm, l_max, logdet0);
+  const T logf_lmin = gt_logf_stable(c, sm, l_min, logdet0);
+  const T logf_lmax = gt_logf_stable(c, sm, l_max, logdet0);
   if (logf_lmin > best_logf) {
     best_logf = logf_lmin;
     best_lam = l_min;
@@ -122,27 +132,37 @@ lambda_solve_kernel(const float* __restrict__ d1f,
     best_lam = l_max;
   }
   if (threadIdx.x == 0) {
-    lam_out[s] = best_lam;
-    logf_out[s] = best_logf;
+    lam_out[s] = (float)best_lam;
+    logf_out[s] = (float)best_logf;
   }
 }
 
+// `fine` is the float32 grid (wide = 0) or the float64 one (wide = 1).
 extern "C" int lambda_solve_launch(const void* d1f, const void* fine,
                                    int n_region, int refine,
                                    const void* eval, const void* UtWy,
                                    const void* wy, const void* Utx,
                                    const void* tab, int n_cvt, int S, int n,
                                    int M, int calc_null, int reml,
-                                   float l_min, float l_max, float epsrel,
-                                   int max_iter, float logf_const,
-                                   void* lam_out, void* logf_out,
-                                   void* stream) {
-  if (S > 0)
-    lambda_solve_kernel<<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
+                                   int ustride, int wstride, int xstride,
+                                   int wide, double l_min, double l_max,
+                                   double epsrel, int max_iter,
+                                   double logf_const, void* lam_out,
+                                   void* logf_out, void* stream) {
+  if (S > 0 && wide)
+    lambda_solve_kernel<double><<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)d1f, (const double*)fine, n_region, refine,
+        (const float*)eval, (const float*)UtWy, (const float*)wy,
+        (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
+        ustride, wstride, xstride, l_min, l_max, epsrel, max_iter,
+        logf_const, (float*)lam_out, (float*)logf_out);
+  else if (S > 0)
+    lambda_solve_kernel<float><<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)d1f, (const float*)fine, n_region, refine,
         (const float*)eval, (const float*)UtWy, (const float*)wy,
         (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
-        l_min, l_max, epsrel, max_iter, logf_const, (float*)lam_out,
+        ustride, wstride, xstride, (float)l_min, (float)l_max,
+        (float)epsrel, max_iter, (float)logf_const, (float*)lam_out,
         (float*)logf_out);
   return (int)cudaGetLastError();
 }

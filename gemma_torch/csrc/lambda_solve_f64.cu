@@ -20,6 +20,8 @@
 // reduction of the order-1 base row plus Σ log|λ d + 1| and the CalcPab
 // recurrence; its λ-independent REML piece, the identity-weighted
 // recurrence diagonals, comes in as iab_logdiag (build_batch_data).
+// Each lane's UtWy, wy and Utx rows sit at its lane stride (0 where the
+// lanes share them), as in K3.
 //
 // Bound: operations — float64 evaluations of O(n·(c+1)²) each, at least
 // the n_region + 1 scan points, one per Brent step, one per Newton step
@@ -169,7 +171,8 @@ lambda_solve_f64_kernel(const double* __restrict__ grid, int n_region,
                         const double* __restrict__ Utx,
                         const double* __restrict__ iab_logdiag,
                         const int* __restrict__ tab, int n_cvt, int n, int M,
-                        int calc_null, int reml, double l_min, double l_max,
+                        int calc_null, int reml, int ustride, int wstride,
+                        int xstride, double l_min, double l_max,
                         double brent_epsrel, double newton_epsrel,
                         int brent_max_iter, int newton_max_iter,
                         double logf_const, double* lam_out,
@@ -178,9 +181,9 @@ lambda_solve_f64_kernel(const double* __restrict__ grid, int n_region,
   const int s = blockIdx.x;
   Ctx64 c;
   c.eval = eval;
-  c.UtWy = UtWy;
-  c.wy = wy;
-  c.x = Utx + (long)s * n;
+  c.UtWy = UtWy + (long)s * ustride;
+  c.wy = wy + (long)s * wstride;
+  c.x = Utx + (long)s * xstride;
   c.t = gt_tables(tab, n_cvt);
   c.n_cvt = n_cvt;
   c.n = n;
@@ -264,7 +267,8 @@ extern "C" int lambda_solve_f64_launch(
     const void* grid, int n_region, const void* eval, const void* UtWy,
     const void* wy, const void* Utx, const void* iab_logdiag,
     const void* tab, int n_cvt, int S, int n, int M, int calc_null,
-    int reml, double l_min, double l_max, double brent_epsrel,
+    int reml, int ustride, int wstride, int xstride, double l_min,
+    double l_max, double brent_epsrel,
     double newton_epsrel, int brent_max_iter, int newton_max_iter,
     double logf_const, void* lam_out, void* logf_out, void* stream) {
   if (S > 0)
@@ -272,7 +276,7 @@ extern "C" int lambda_solve_f64_launch(
         (const double*)grid, n_region, (const double*)eval,
         (const double*)UtWy, (const double*)wy, (const double*)Utx,
         (const double*)iab_logdiag, (const int*)tab, n_cvt, n, M, calc_null,
-        reml, l_min, l_max, brent_epsrel, newton_epsrel, brent_max_iter,
+        reml, ustride, wstride, xstride, l_min, l_max, brent_epsrel, newton_epsrel, brent_max_iter,
         newton_max_iter, logf_const, (double*)lam_out, (double*)logf_out);
   return (int)cudaGetLastError();
 }

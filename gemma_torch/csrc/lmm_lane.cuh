@@ -1,12 +1,14 @@
 // One SNP lane's likelihood evaluations, by one thread block: the
 // derivatives dev1/dev2 (LogRL_dev12 / LogL_dev12, lmm.cpp:820-1010) and
 // the residual-form log-likelihood `logf_stable` (reference
-// gemma_tpu/models/lmm/likelihood.py:269-341).  Shared by K3 (float32),
-// K6 (float32 operands, float64 sums) and K7 (float64).
+// gemma_tpu/models/lmm/likelihood.py:269-341).  Shared by K3 (float32,
+// or float32 operands with float64 sums for per-lane blocks), K6
+// (float32 operands, float64 sums) and K7 (float64).
 //
 // Templates take the operand type Tin (what the lane's arrays hold) and
 // the working type T (what is summed and factored); K3 runs <float,
-// float>, the arithmetic it always ran.
+// float>, the arithmetic it always ran, on shared-operand blocks and
+// <float, double> on per-lane ones.
 //
 // dev12 is one set of block reductions over n (the base rows of the
 // weight powers hi^1..hi^P) followed by the recurrences, parallel over

@@ -16,7 +16,11 @@
 // Σ h r²; λ̂ is a stationary point of logf, so λ's float32 error enters
 // only at second order.  Launched once on the null lane (calc_null = 1,
 // S = 1, at the null's λ_mle) it gives logl_H0, which the SNP launch
-// reads from device memory.  In the parity mode (recompute = 0) the
+// reads from device memory.  Where every lane has its own null (GxE:
+// the covariates [W, env, x]; gene mode: the gene's response) the null
+// launch has S lanes at their own λ, UtWy and Utx sit at their lane
+// strides (0 = shared), and the SNP launch reads logl_H0 at stride 1.
+// In the parity mode (recompute = 0) the
 // float64 logf_H1 of the λ search (K7) is taken as given and one thread
 // per lane applies the tail.  Both write logl_H1 and p in float64.
 //
@@ -31,16 +35,16 @@ lrt_recompute_kernel(const float* __restrict__ lam,
                      const float* __restrict__ eval,
                      const float* __restrict__ UtWy,
                      const float* __restrict__ Utx, int n_cvt, int n,
-                     int calc_null, double logf_const,
-                     const double* __restrict__ logl0, double* logl_out,
-                     double* p_out) {
+                     int calc_null, int ustride, int xstride,
+                     double logf_const, const double* __restrict__ logl0,
+                     int l0_stride, double* logl_out, double* p_out) {
   __shared__ SolveSmem<double> sm;
   const int s = blockIdx.x;
   SolveCtx<float, double> c;
   c.eval = eval;
-  c.UtWy = UtWy;
+  c.UtWy = UtWy + (long)s * ustride;
   c.wy = nullptr;
-  c.x = Utx + (long)s * n;
+  c.x = Utx + (long)s * xstride;
   c.t = PabTables{};
   c.n_cvt = n_cvt;
   c.n = n;
@@ -53,36 +57,39 @@ lrt_recompute_kernel(const float* __restrict__ lam,
   const double l1 = gt_logf_stable(c, sm, (double)lam[s], 0.0);
   if (threadIdx.x == 0) {
     logl_out[s] = l1;
-    if (p_out != nullptr) p_out[s] = gt_chisq_sf(2.0 * (l1 - logl0[0]), 1.0);
+    if (p_out != nullptr)
+      p_out[s] = gt_chisq_sf(2.0 * (l1 - logl0[(long)s * l0_stride]), 1.0);
   }
 }
 
 __global__ void lrt_tail_only_kernel(const double* __restrict__ logl_in,
                                      int S, const double* __restrict__ logl0,
-                                     double* logl_out, double* p_out) {
+                                     int l0_stride, double* logl_out,
+                                     double* p_out) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
   const double l1 = logl_in[s];
   logl_out[s] = l1;
-  p_out[s] = gt_chisq_sf(2.0 * (l1 - logl0[0]), 1.0);
+  p_out[s] = gt_chisq_sf(2.0 * (l1 - logl0[(long)s * l0_stride]), 1.0);
 }
 
 extern "C" int lrt_tail_launch(int recompute, const void* lam,
                                const void* eval, const void* UtWy,
                                const void* Utx, int n_cvt, int S, int n,
-                               int calc_null, double logf_const,
-                               const void* logl_in, const void* logl0,
+                               int calc_null, int ustride, int xstride,
+                               double logf_const, const void* logl_in,
+                               const void* logl0, int l0_stride,
                                void* logl_out, void* p_out, void* stream) {
   if (S > 0 && recompute)
     lrt_recompute_kernel<<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)lam, (const float*)eval, (const float*)UtWy,
-        (const float*)Utx, n_cvt, n, calc_null, logf_const,
-        (const double*)logl0, (double*)logl_out, (double*)p_out);
+        (const float*)Utx, n_cvt, n, calc_null, ustride, xstride, logf_const,
+        (const double*)logl0, l0_stride, (double*)logl_out, (double*)p_out);
   else if (S > 0)
     lrt_tail_only_kernel<<<(S + GT_THREADS - 1) / GT_THREADS, GT_THREADS, 0,
                            (cudaStream_t)stream>>>(
-        (const double*)logl_in, S, (const double*)logl0, (double*)logl_out,
-        (double*)p_out);
+        (const double*)logl_in, S, (const double*)logl0, l0_stride,
+        (double*)logl_out, (double*)p_out);
   return (int)cudaGetLastError();
 }
 

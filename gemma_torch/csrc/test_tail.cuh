@@ -5,7 +5,9 @@
 // tails.cuh.  The Wald test reads each lane's REML λ and the
 // cancellation-free f = (p_xy²/p_xx)·tau (likelihood.py:506-515 of the
 // reference); the score test reads the null model's ML λ, shared by all
-// lanes, and f = n p_xy²/(p_yy p_xx).
+// lanes (lam_stride 0) or one per lane (gene mode), and
+// f = n p_xy²/(p_yy p_xx).  UtWy, wy and Utx are offset by their lane
+// strides (0 where all lanes share them).
 //
 // Bound: bytes — the lane's Utx row is read once from device memory
 // (eval/UtWy/wy are shared by all lanes and stay in L2) and three values
@@ -20,12 +22,14 @@ test_tail_kernel(const T* __restrict__ lam, const T* __restrict__ eval,
                  const T* __restrict__ UtWy, const T* __restrict__ wy,
                  const T* __restrict__ Utx, const int* __restrict__ tab,
                  int n_cvt, int n, int M, int xx_pos, int xy_pos,
+                 int lam_stride, int ustride, int wstride, int xstride,
                  T* beta_out, T* se_out, T* p_out) {
   __shared__ TestSmem<T> sm;
   const int s = blockIdx.x;
-  const TestRows<T> r =
-      gt_test_rows<T>(lam[SCORE ? 0 : s], eval, UtWy, wy, Utx + (long)s * n,
-                      tab, n_cvt, n, M, xx_pos, xy_pos, sm);
+  const TestRows<T> r = gt_test_rows<T>(
+      lam[(long)s * lam_stride], eval, UtWy + (long)s * ustride,
+      wy + (long)s * wstride, Utx + (long)s * xstride, tab, n_cvt, n, M,
+      xx_pos, xy_pos, sm);
   if (threadIdx.x == 0) {
     const T df = (T)(n - n_cvt - 1);
     const T beta = r.p_xy / r.p_xx;
@@ -44,12 +48,14 @@ static int gt_test_tail_run(const void* lam, const void* eval,
                             const void* UtWy, const void* wy,
                             const void* Utx, const void* tab, int n_cvt,
                             int S, int n, int M, int xx_pos, int xy_pos,
-                            void* beta, void* se, void* p, void* stream) {
+                            int lam_stride, int ustride, int wstride,
+                            int xstride, void* beta, void* se, void* p,
+                            void* stream) {
   if (S > 0)
     test_tail_kernel<T, SCORE><<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
         (const T*)lam, (const T*)eval, (const T*)UtWy, (const T*)wy,
         (const T*)Utx, (const int*)tab, n_cvt, n, M, xx_pos, xy_pos,
-        (T*)beta, (T*)se, (T*)p);
+        lam_stride, ustride, wstride, xstride, (T*)beta, (T*)se, (T*)p);
   return (int)cudaGetLastError();
 }
 
@@ -59,9 +65,11 @@ static int gt_test_tail_run(const void* lam, const void* eval,
   extern "C" int name(const void* lam, const void* eval, const void* UtWy, \
                       const void* wy, const void* Utx, const void* tab,    \
                       int n_cvt, int S, int n, int M, int xx_pos,          \
-                      int xy_pos, void* beta, void* se, void* p,           \
-                      void* stream) {                                      \
+                      int xy_pos, int lam_stride, int ustride,             \
+                      int wstride, int xstride, void* beta, void* se,      \
+                      void* p, void* stream) {                             \
     return gt_test_tail_run<T, SCORE>(lam, eval, UtWy, wy, Utx, tab,      \
                                       n_cvt, S, n, M, xx_pos, xy_pos,      \
-                                      beta, se, p, stream);                \
+                                      lam_stride, ustride, wstride,        \
+                                      xstride, beta, se, p, stream);       \
   }

@@ -138,17 +138,20 @@ GENO_PROLOGUE_F64 = Kernel("geno_prologue_f64", _PROLOGUE_ARGS,
                            _PROLOGUE_REPLACES, source="geno_prologue")
 LAMBDA_GRID = Kernel(
     "lambda_grid",
-    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "gemma_tpu/models/lmm/likelihood.py:380 dev1_grid (recurrence epilogue)")
 LAMBDA_SOLVE = Kernel(
     "lambda_solve",
-    (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-     _F, _I, _F, _P, _P),
+    (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+     _I, _I, _D, _D, _D, _I, _D, _P, _P),
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float32 bracket/"
     "Newton loop :307-434, _newton_batched :186, dev12 likelihood.py:441, "
     "logf_stable likelihood.py:269)")
 # K4 and K5 share one argument list: lam is (S,) for Wald, (1,) for score
-_TAIL_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)
+# (or (S,), one null λ per lane); then the lanes' strides of λ, UtWy,
+# wy_prod and Utx (0 = shared)
+_TAIL_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+              _I, _P, _P, _P)
 _WALD_REPLACES = ("gemma_tpu/models/lmm/likelihood.py:488 wald_stats + "
                   "gemma_tpu/ops/stats.py:21 f_sf")
 _SCORE_REPLACES = ("gemma_tpu/models/lmm/likelihood.py:519 score_stats + "
@@ -161,20 +164,26 @@ SCORE_TAIL_F64 = Kernel("score_tail_f64", _TAIL_ARGS, _SCORE_REPLACES,
                         source="score_tail")
 LRT_TAIL = Kernel(
     "lrt_tail",
-    (_I, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P),
+    (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _P, _I, _P, _P),
     "gemma_tpu/ops/stats.py:46 chisq_sf + gemma_tpu/models/lmm/engine.py:163 "
     "(the LRT difference)")
 LAMBDA_SOLVE_F64 = Kernel(
     "lambda_solve_f64",
-    (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D,
-     _I, _I, _D, _P, _P),
+    (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _D, _D, _D, _D, _I, _I, _D, _P, _P),
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float64 branch: "
     "per-point dev1 scan :300-302, _brent_batched :66, _newton_batched "
     ":186, logf likelihood.py:237)")
+_LM_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P)
+_LM_REPLACES = ("gemma_tpu/models/lm.py:38 lm_block + :68 lm_gene_block "
+                "(with gemma_tpu/ops/stats.py:21 f_sf, :46 chisq_sf)")
+LM_TAIL = Kernel("lm_tail", _LM_ARGS, _LM_REPLACES)
+LM_TAIL_F64 = Kernel("lm_tail_f64", _LM_ARGS, _LM_REPLACES,
+                     source="lm_tail")
 
 ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL, SCORE_TAIL,
        LRT_TAIL, LAMBDA_SOLVE_F64, GENO_PROLOGUE_F64, WALD_TAIL_F64,
-       SCORE_TAIL_F64)
+       SCORE_TAIL_F64, LM_TAIL, LM_TAIL_F64)
 
 
 def variant(k32: Kernel, k64: Kernel, dtype: torch.dtype) -> Kernel:

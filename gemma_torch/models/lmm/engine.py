@@ -10,6 +10,11 @@ performs (lmm.cpp), as the reference package's engine does:
   * assoc_block_impl  — per-SNP Wald/LRT/score statistics for a block
                         of rotated genotypes (LMM::Analyze,
                         lmm.cpp:1474-1658).
+  * assoc_gxe_block_impl, assoc_gene_block_impl — the same tests where
+                        each lane has its own covariates (GxE) or its
+                        own response (gene mode), and its own null fit:
+                        the kernels read those per-lane operands at a
+                        lane stride.
 
 Modes mirror GEMMA's -lmm numbers: 1=Wald, 2=LRT, 3=score, 4=all,
 9=LRT+score (with beta/se from the score fit).
@@ -120,15 +125,95 @@ def assoc_block_impl(eval_, UtW, Uty, Utx_block, l_mle_null, logl_mle_H0,
     fit, in mode 9 from the score fit; logl_H1 is the ML fit's in 2/4/9.
     On the card: K5 the score; K2 + K3 (K7 in float64) each λ search; K4
     the Wald test; K6 the likelihood-ratio test."""
-    if mode not in (1, 2, 3, 4, 9):
-        raise ValueError(f"assoc_block_impl runs -lmm 1/2/3/4/9, not {mode}")
     data = lk.build_batch_data(eval_, UtW, Uty, Utx_block, n_cvt)
+    return _tests(data, n_cvt, mode, l_mle_null, l_mle_null, logl_mle_H0,
+                  torch.zeros_like(Utx_block[:, 0]), l_min, l_max, n_region)
+
+
+def gxe_batch_data(eval_, UtW, Ut_env, Uty, Utx_block, Utxe_block,
+                   n_cvt: int) -> lk.LmmBatchData:
+    """A GxE block: lane s has the covariates [W, env, x_s] (n_cvt + 2)
+    and the predictor x_s * env."""
+    S, n = Utx_block.shape
+    UtWe = torch.cat([UtW.expand(S, n, n_cvt), Ut_env.expand(S, n)[..., None],
+                      Utx_block[..., None]], dim=-1)
+    return lk.build_batch_data(eval_, UtWe, Uty, Utxe_block, n_cvt + 2)
+
+
+def gene_batch_data(eval_, UtW, Utx, Uty_block, n_cvt: int):
+    """A gene block: lane g has the response Uty_block[g]; the rotated
+    phenotype Utx (n,) is the predictor of every lane."""
+    return lk.build_batch_data(eval_, UtW, Uty_block, Utx[None, :], n_cvt)
+
+
+def assoc_gxe_block_impl(eval_, UtW, Ut_env, Uty, Utx_block, Utxe_block,
+                         l_mle_null, logl_mle_H0, n_cvt: int, mode: int,
+                         l_min: float = 1e-5, l_max: float = 1e5,
+                         n_region: int = 10) -> AssocStats:
+    """GxE association (AnalyzeBimbamGXE, lmm.cpp:2283-2431).
+
+    Per SNP the covariates expand to [W, env, x] (n_cvt+2) and the
+    tested predictor is the interaction x*env: each lane has its own
+    UtWy and wy_prod.  The LRT's null is re-fit per SNP (it contains x)
+    in modes 2 and 4; in mode 9 it is not, and logl_H0 stays 0 as in the
+    reference package (engine.py:194-198 there; logl_mle_H0 is unused).
+    The score runs at the covariate-only null's ML λ, shared by all
+    lanes.  In float32 K6 re-evaluates each lane's ML null and H1 with
+    float64 sums."""
+    nc2 = n_cvt + 2
+    data = gxe_batch_data(eval_, UtW, Ut_env, Uty, Utx_block, Utxe_block,
+                          n_cvt)
     zeros = torch.zeros_like(Utx_block[:, 0])
+    l_H0, logl_H0 = None, zeros
+    if mode in (2, 4):
+        null = calc_lambda(data, nc2, calc_null=True, reml=False,
+                           l_min=l_min, l_max=l_max, n_region=n_region)
+        l_H0, logl_H0 = null.lam, null.logf
+    return _tests(data, nc2, mode, l_mle_null, l_H0, logl_H0, zeros,
+                       l_min, l_max, n_region)
+
+
+def assoc_gene_block_impl(eval_, UtW, Utx, Uty_block, n_cvt: int, mode: int,
+                          l_min: float = 1e-5, l_max: float = 1e5,
+                          n_region: int = 10) -> AssocStats:
+    """Gene-expression association (AnalyzeGene, lmm.cpp:1365-1471).
+
+    Roles are swapped: each gene's rotated expression vector is the
+    response (a per-lane UtWy), the rotated phenotype Utx the one
+    predictor all lanes share.  Each gene has its own null fit, whose λ
+    the score test reads.  In float64 that fit is the reference
+    package's: calc_null=False with x zeroed, which the recurrence's
+    ps_ww == 0 guard makes the null.  In float32 it is the null itself
+    (calc_null=True): the zero-x form takes logf_stable's Cholesky of a
+    Gram with a zero row, which is NaN, and the reference's float32
+    p_lrt is NaN for every gene (ROADMAP.md §C)."""
+    data = gene_batch_data(eval_, UtW, Utx, Uty_block, n_cvt)
+    zeros = torch.zeros_like(Uty_block[:, 0])
+    l_H0, logl_H0 = zeros, zeros
+    if mode in (2, 3, 4, 9):
+        if eval_.dtype == torch.float64:
+            data0 = lk.replace_x(data, torch.zeros_like(Utx)[None, :], n_cvt)
+            null = calc_lambda(data0, n_cvt, calc_null=False, reml=False,
+                               l_min=l_min, l_max=l_max, n_region=n_region)
+        else:
+            null = calc_lambda(data, n_cvt, calc_null=True, reml=False,
+                               l_min=l_min, l_max=l_max, n_region=n_region)
+        l_H0, logl_H0 = null.lam, null.logf
+    return _tests(data, n_cvt, mode, l_H0, l_H0, logl_H0, zeros,
+                       l_min, l_max, n_region)
+
+
+def _tests(data, n_cvt: int, mode: int, l_score, l_H0, logl_H0, zeros,
+                l_min: float, l_max: float, n_region: int) -> AssocStats:
+    """The tests in the reference's order and with its overrides: the
+    score at l_score, the LRT against the null at l_H0 (None: logl_H0
+    as given), each one λ for all lanes or one per lane."""
+    if mode not in (1, 2, 3, 4, 9):
+        raise ValueError(f"the LMM tests run -lmm 1/2/3/4/9, not {mode}")
     beta = se = lambda_remle = lambda_mle = zeros
     p_wald = p_lrt = p_score = logl_H1 = zeros
-
     if mode in (3, 4, 9):
-        beta, se, p_score = lk.score_pvalues(l_mle_null, data, n_cvt)
+        beta, se, p_score = lk.score_pvalues(l_score, data, n_cvt)
     if mode in (1, 4):
         remle = calc_lambda(data, n_cvt, calc_null=False, reml=True,
                             l_min=l_min, l_max=l_max, n_region=n_region)
@@ -139,7 +224,7 @@ def assoc_block_impl(eval_, UtW, Uty, Utx_block, l_mle_null, logl_mle_H0,
                           l_min=l_min, l_max=l_max, n_region=n_region)
         lambda_mle = mle.lam
         logl_H1, p_lrt = lk.lrt_pvalues(mle.lam, mle.logf, data, n_cvt,
-                                        l_mle_null, logl_mle_H0)
+                                        l_H0, logl_H0)
     return AssocStats(beta=beta, se=se, lambda_remle=lambda_remle,
                       lambda_mle=lambda_mle, p_wald=p_wald, p_lrt=p_lrt,
                       p_score=p_score, logl_H1=logl_H1)

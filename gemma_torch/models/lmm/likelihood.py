@@ -14,6 +14,14 @@ the epilogue of `dev1_grid` (K2, csrc/lambda_grid.cu), the Wald tail
 `wald_pvalues` (K4, csrc/wald_tail.cu), the score tail `score_pvalues`
 (K5, csrc/score_tail.cu) and the likelihood-ratio tail `lrt_pvalues`
 (K6, csrc/lrt_tail.cu).  Lanes are one axis (S,).
+
+A block's operands are shared by all lanes (one phenotype, one set of
+covariates: -lmm on SNPs) or per lane (GxE: each SNP's covariates are
+[W, env, x]; gene mode: each gene is a response): `UtWy` (S, n, c+1)
+and `wy_prod` (S, n, m_wy) instead of (n, c+1) and (n, m_wy), and
+`Utx` one shared row (1, n) where the lanes share the predictor.  The
+kernels take each per-lane operand with a lane stride, 0 where it is
+shared.
 """
 
 from __future__ import annotations
@@ -36,10 +44,13 @@ class LmmBatchData(NamedTuple):
     """Device-resident inputs for one SNP block.
 
     eval:    (n,)   zeroed eigenvalues of the centered kinship matrix
-    UtWy:    (n, c+1)  rotated covariates with rotated phenotype as last col
+    UtWy:    (n, c+1)  rotated covariates with rotated phenotype as last
+             col, or (S, n, c+1) per lane
     wy_prod: (n, m_wy) elementwise products of the {W,y}-pair columns,
-             ordered to match PabIndices.wy_positions
-    Utx:     (S, n) rotated genotypes for the block (zeros for null fits)
+             ordered to match PabIndices.wy_positions; (S, n, m_wy) per
+             lane
+    Utx:     (S, n) rotated genotypes for the block (zeros for null
+             fits), or (1, n) one predictor shared by every lane
     iab_logdiag: (S, n_cvt+1) log of the identity-weighted recurrence
              diagonals (the λ-independent piece of the Pab-form REML
              logdet); float64 only, where the strict `logf` reads it
@@ -56,27 +67,72 @@ def _ix(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
 
 
+def per_lane(data: LmmBatchData) -> bool:
+    """True when each lane has its own UtWy / wy_prod."""
+    return data.UtWy.dim() == 3
+
+
+def n_lanes(data: LmmBatchData) -> int:
+    """Lane count: the per-lane operands' leading axis, else Utx's rows."""
+    return data.UtWy.shape[0] if per_lane(data) else data.Utx.shape[0]
+
+
+def lane_strides(data: LmmBatchData) -> tuple:
+    """Elements between two lanes' UtWy, wy_prod and Utx (0 = shared),
+    as the kernels take them."""
+    n = data.eval.shape[0]
+    if not per_lane(data):
+        return 0, 0, n
+    return (n * data.UtWy.shape[2], n * data.wy_prod.shape[2],
+            0 if data.Utx.shape[0] == 1 else n)
+
+
+def _lane_mm(w, A):
+    """Each lane's weights w (..., S, n) times its operand A: (n, m)
+    shared by the lanes, or (S, n, m) per lane."""
+    if A.dim() == 2:
+        return torch.matmul(w, A)
+    return torch.matmul(w.unsqueeze(-2), A).squeeze(-2)
+
+
 def _iab_logdiag(data: LmmBatchData, n_cvt: int) -> torch.Tensor:
     idx = pab_indices(n_cvt)
-    ones = torch.ones_like(data.Utx)
+    ones = torch.ones((n_lanes(data), data.eval.shape[0]),
+                      dtype=data.Utx.dtype, device=data.Utx.device)
     iab = _pab_rows(_base_row(ones, data, n_cvt), n_cvt)
     return torch.stack([torch.log(iab[i][..., int(idx.diag[i])])
                         for i in range(n_cvt + 1)], dim=-1)
 
 
 def build_batch_data(eval_, UtW, Uty, Utx, n_cvt: int) -> LmmBatchData:
-    """Assemble the shared tensors for a SNP block (or a null fit)."""
+    """Assemble the tensors for a SNP block (or a null fit).
+
+    Shared operands are UtW (n, c) and Uty (n,).  A per-lane UtW
+    (S, n, c) or Uty (S, n), the other broadcast to the S lanes, gives
+    per-lane UtWy and wy_prod; Utx is (S, n) or one shared row (1, n)."""
     idx = pab_indices(n_cvt)
-    UtWy = torch.cat([UtW, Uty[:, None]], dim=1).contiguous()
+    if UtW.dim() == 3 or Uty.dim() == 2:
+        S = UtW.shape[0] if UtW.dim() == 3 else Uty.shape[0]
+        n = eval_.shape[0]
+        UtWy = torch.cat([UtW.expand(S, n, n_cvt),
+                          Uty.expand(S, n)[..., None]], dim=-1).contiguous()
+    else:
+        UtWy = torch.cat([UtW, Uty[:, None]], dim=1).contiguous()
     cols = []
     for (a, b) in idx.wy_pairs:
-        ca = UtWy[:, a - 1] if a <= n_cvt else UtWy[:, n_cvt]
-        cb = UtWy[:, b - 1] if b <= n_cvt else UtWy[:, n_cvt]
+        ca = UtWy[..., a - 1] if a <= n_cvt else UtWy[..., n_cvt]
+        cb = UtWy[..., b - 1] if b <= n_cvt else UtWy[..., n_cvt]
         cols.append(ca * cb)
-    wy_prod = torch.stack(cols, dim=1).contiguous()
+    wy_prod = torch.stack(cols, dim=-1).contiguous()
     data = LmmBatchData(eval=eval_, UtWy=UtWy, wy_prod=wy_prod, Utx=Utx,
                         iab_logdiag=None)
-    if eval_.dtype == torch.float64:
+    return replace_x(data, Utx, n_cvt)
+
+
+def replace_x(data: LmmBatchData, Utx, n_cvt: int) -> LmmBatchData:
+    """The block with another Utx (and, in float64, its iab_logdiag)."""
+    data = data._replace(Utx=Utx, iab_logdiag=None)
+    if data.eval.dtype == torch.float64:
         data = data._replace(iab_logdiag=_iab_logdiag(data, n_cvt))
     return data
 
@@ -111,9 +167,9 @@ def _base_row(w, data: LmmBatchData, n_cvt: int):
     Returns (..., S, n_index): weighted inner products of every column
     pair, laid out in GEMMA's GetabIndex order.
     """
-    shared = torch.matmul(w, data.wy_prod)             # (..., S, m_wy)
+    shared = _lane_mm(w, data.wy_prod)                 # (..., S, m_wy)
     wx = w * data.Utx                                  # (..., S, n)
-    xcross = torch.matmul(wx, data.UtWy)               # (..., S, c+1)
+    xcross = _lane_mm(wx, data.UtWy)                   # (..., S, c+1)
     xx = torch.sum(wx * data.Utx, dim=-1)              # (..., S)
     return _assemble(n_cvt, shared, xx, xcross)
 
@@ -125,8 +181,8 @@ def _base_rows_multi(hi, data: LmmBatchData, n_cvt: int, order: int):
     w = hi
     vx = v1
     for p in range(order):
-        shared = torch.matmul(w, data.wy_prod)
-        xcross = torch.matmul(vx, data.UtWy)
+        shared = _lane_mm(w, data.wy_prod)
+        xcross = _lane_mm(vx, data.UtWy)
         if p == 0:
             xx = torch.sum(v1 * data.Utx, dim=-1)
         elif p == 1:
@@ -280,21 +336,23 @@ def logf_stable(lam, data: LmmBatchData, n_cvt: int, calc_null: bool,
     non-negative terms, no catastrophic cancellation.
     """
     n = data.eval.shape[0]
-    W = data.UtWy[:, :n_cvt]                       # (n, c)
-    y = data.UtWy[:, n_cvt]                        # (n,)
+    lanes = per_lane(data)
+    sw, sj, sy = ("kni", "knj", "kn") if lanes else ("ni", "nj", "n")
+    W = data.UtWy[..., :n_cvt]                     # (n, c) or (S, n, c)
+    y = data.UtWy[..., n_cvt]                      # (n,) or (S, n)
     v, hi = _weights(lam, data.eval)               # (..., S, n)
     logdet_h = torch.sum(torch.log(torch.abs(v)), dim=-1)
 
-    Gww = torch.einsum("...kn,ni,nj->...kij", hi, W, W)
-    gwy = torch.einsum("...kn,ni,n->...ki", hi, W, y)
+    Gww = torch.einsum(f"...kn,{sw},{sj}->...kij", hi, W, W)
+    gwy = torch.einsum(f"...kn,{sw},{sy}->...ki", hi, W, y)
+    x = data.Utx.expand(n_lanes(data), n) if lanes else data.Utx
     if calc_null:
         G = Gww
         rhs = gwy
     else:
-        x = data.Utx                               # (S, n)
-        Gwx = torch.einsum("...kn,ni,kn->...ki", hi, W, x)
+        Gwx = torch.einsum(f"...kn,{sw},kn->...ki", hi, W, x)
         Gxx = torch.einsum("...kn,kn,kn->...k", hi, x, x)
-        gxy = torch.einsum("...kn,kn,n->...k", hi, x, y)
+        gxy = torch.einsum(f"...kn,kn,{sy}->...k", hi, x, y)
         top = torch.cat([Gww, Gwx[..., :, None]], dim=-1)
         bot = torch.cat([Gwx[..., None, :], Gxx[..., None, None]], dim=-1)
         G = torch.cat([top, bot], dim=-2)          # (..., S, c+1, c+1)
@@ -302,7 +360,7 @@ def logf_stable(lam, data: LmmBatchData, n_cvt: int, calc_null: bool,
 
     L = _cholesky_nan(G)
     beta = torch.cholesky_solve(rhs[..., None], L)[..., 0]
-    t = y - torch.einsum("ni,...ki->...kn", W, beta[..., :n_cvt])
+    t = y - torch.einsum(f"{sw},...ki->...kn", W, beta[..., :n_cvt])
     if not calc_null:
         t = t - data.Utx * beta[..., n_cvt:n_cvt + 1]
     p_yy = _clamp_p_yy(torch.einsum("...kn,...kn->...k", hi, t * t))
@@ -312,14 +370,13 @@ def logf_stable(lam, data: LmmBatchData, n_cvt: int, calc_null: bool,
         df = _df(n, n_cvt, calc_null)
         ld = torch.log(torch.abs(torch.diagonal(L, dim1=-2, dim2=-1)))
         logdet_hiw = 2.0 * torch.sum(ld, dim=-1)
-        A0ww = W.T @ W
+        A0ww = (torch.einsum("kni,knj->kij", W, W) if lanes else W.T @ W)
         if calc_null:
-            G0 = A0ww.expand(G.shape[:-2] + A0ww.shape)
+            G0 = A0ww.expand(G.shape[:-2] + A0ww.shape[-2:])
         else:
-            x = data.Utx
-            g0wx = torch.einsum("ni,kn->ki", W, x)
+            g0wx = torch.einsum(f"{sw},kn->ki", W, x)
             g0xx = torch.einsum("kn,kn->k", x, x)
-            top0 = torch.cat([A0ww.expand(x.shape[:1] + A0ww.shape),
+            top0 = torch.cat([A0ww.expand(x.shape[:1] + A0ww.shape[-2:]),
                               g0wx[..., :, None]], dim=-1)
             bot0 = torch.cat([g0wx[..., None, :], g0xx[..., None, None]],
                              dim=-1)
@@ -368,7 +425,8 @@ class GridProducts(NamedTuple):
     kernel K2 reads (SNP axis last, so its reads are coalesced)."""
     lam: torch.Tensor       # (G,)
     trace_hi: torch.Tensor  # (G,)
-    shared: torch.Tensor    # (2, G, m_wy)  x-free {W,y} rows
+    shared: torch.Tensor    # (2, G, m_wy) x-free {W,y} rows; (2, G, m_wy, S)
+                            # per lane
     xcross: torch.Tensor    # (2, G, c+1, S)
     xx: torch.Tensor        # (2, G, S)
 
@@ -376,17 +434,30 @@ class GridProducts(NamedTuple):
 def grid_products(grid_np, data: LmmBatchData, n_cvt: int) -> GridProducts:
     """Every x-involving base quantity at every grid point and both
     weight powers, from two products that read Utx once:
-    xcross = (hi_g^p ⊙ UtWy)ᵀ Utxᵀ and xx = hi_g^p (Utx²)ᵀ.  The grid
-    is float64 numpy cast to the working dtype (a float32 grid moves
-    the sign-change brackets)."""
+    xcross = (hi_g^p ⊙ UtWy)ᵀ Utxᵀ and xx = hi_g^p (Utx²)ᵀ.  With
+    per-lane operands the x-free rows are per lane too, and both come
+    from one (2G, n) @ (n, S·m) product each: shared from wy_prod,
+    xcross from UtWy ⊙ Utx.  The grid is float64 numpy cast to the
+    working dtype (a float32 grid moves the sign-change brackets)."""
     n = data.eval.shape[0]
-    S = data.Utx.shape[0]
+    S = n_lanes(data)
     dtype, dev = data.eval.dtype, data.eval.device
     G = len(grid_np)
     lam = torch.as_tensor(np.asarray(grid_np), dtype=dtype, device=dev)
     hi = 1.0 / (lam[:, None] * data.eval + 1.0)             # (G, n)
     HiP = torch.stack([hi, hi * hi]).reshape(2 * G, n)      # (2G, n)
     trace_hi = torch.sum(hi, dim=-1)
+    if per_lane(data):
+        def lanes_last(A):                       # (S, n, m) → (2, G, m, S)
+            m = A.shape[2]
+            prod = HiP @ A.transpose(0, 1).reshape(n, S * m)
+            return (prod.reshape(2 * G, S, m).permute(0, 2, 1)
+                    .reshape(2, G, m, S).contiguous())
+        shared = lanes_last(data.wy_prod)
+        xcross = lanes_last(data.UtWy * data.Utx[..., None])
+        xx = torch.matmul(HiP, (data.Utx * data.Utx).T)
+        xx = xx.expand(2 * G, S).reshape(2, G, S).contiguous()
+        return GridProducts(lam, trace_hi, shared, xcross, xx)
     shared = torch.matmul(HiP, data.wy_prod).reshape(2, G, -1)
     Wb = (HiP[:, None, :] * data.UtWy.T[None]).reshape(-1, n)  # (2G(c+1), n)
     xcross = torch.matmul(Wb, data.Utx.T).reshape(2, G, n_cvt + 1, S)
@@ -400,7 +471,10 @@ def grid_epilogue_plain(gp: GridProducts, n: int, n_cvt: int,
     G, S = gp.xx.shape[1], gp.xx.shape[2]
     rows = []
     for p in range(2):
-        shared = gp.shared[p][:, None, :].expand(G, S, -1)
+        if gp.shared.dim() == 4:
+            shared = gp.shared[p].permute(0, 2, 1)           # (G, S, m)
+        else:
+            shared = gp.shared[p][:, None, :].expand(G, S, -1)
         xcross = gp.xcross[p].permute(0, 2, 1)               # (G, S, c+1)
         rows.append(_assemble(n_cvt, shared, gp.xx[p], xcross))
     pab = _pab_rows(rows[0], n_cvt)
@@ -416,10 +490,12 @@ def grid_epilogue_cuda(gp: GridProducts, n: int, n_cvt: int,
     G, S = gp.xx.shape[1], gp.xx.shape[2]
     C1 = n_cvt + 1
     M = gp.shared.shape[2]
+    wy_lane = gp.shared.dim() == 4
     f32 = torch.float32
     kernels.check_operand(gp.xcross, "xcross", f32, (2, G, C1, S))
     kernels.check_operand(gp.xx, "xx", f32, (2, G, S))
-    kernels.check_operand(gp.shared, "shared", f32, (2, G, M))
+    kernels.check_operand(gp.shared, "shared", f32,
+                          (2, G, M, S) if wy_lane else (2, G, M))
     kernels.check_operand(gp.trace_hi, "trace_hi", f32, (G,))
     kernels.check_operand(gp.lam, "lam", f32, (G,))
     dev = gp.xx.device
@@ -428,7 +504,7 @@ def grid_epilogue_cuda(gp: GridProducts, n: int, n_cvt: int,
     kernels.LAMBDA_GRID.launch(
         dev, gp.xcross.data_ptr(), gp.xx.data_ptr(), gp.shared.data_ptr(),
         gp.trace_hi.data_ptr(), gp.lam.data_ptr(), tab.data_ptr(), n_cvt, S,
-        G, M, n, int(calc_null), int(reml), d1f.data_ptr())
+        G, M, n, int(calc_null), int(reml), int(wy_lane), d1f.data_ptr())
     return d1f
 
 
@@ -547,19 +623,41 @@ def wald_pvalues_plain(lam, data: LmmBatchData, n_cvt: int):
     return beta, se, f_sf(f_stat, 1.0, df)
 
 
+def _one_or_lanes(t: torch.Tensor, name: str, S: int) -> None:
+    if t.numel() not in (1, S):
+        raise ValueError(f"{name}: expected 1 or {S} values, got "
+                         f"{t.numel()}")
+
+
+def check_lane_operands(data: LmmBatchData, n_cvt: int, dt,
+                         wy: bool = True) -> None:
+    """Raise unless the block's operands are what the kernels take:
+    shared (n, ·) or per lane (S, n, ·), Utx (S, n) or (1, n)."""
+    S, n = n_lanes(data), data.eval.shape[0]
+    lead = (S, n) if per_lane(data) else (n,)
+    kernels.check_operand(data.eval, "eval", dt, (n,))
+    kernels.check_operand(data.UtWy, "UtWy", dt, lead + (n_cvt + 1,))
+    if wy:
+        kernels.check_operand(data.wy_prod, "wy_prod", dt,
+                              lead + (data.wy_prod.shape[-1],))
+    if data.Utx.shape[0] not in (1, S):
+        raise ValueError(f"Utx: expected 1 or {S} rows, got "
+                         f"{data.Utx.shape[0]}")
+    kernels.check_operand(data.Utx, "Utx", dt, (data.Utx.shape[0], n))
+
+
 def _test_tail_cuda(k32, k64, lam, data: LmmBatchData, n_cvt: int):
-    """K4 or K5 on the card, float32 or float64: one block per SNP."""
+    """K4 or K5 on the card, float32 or float64: one block per lane; λ
+    is one per lane (S,) or one shared (1,)."""
     kernels.check_n_cvt(n_cvt)
     idx = pab_indices(n_cvt)
-    S, n = data.Utx.shape
-    M = data.wy_prod.shape[1]
+    S, n = n_lanes(data), data.eval.shape[0]
+    M = data.wy_prod.shape[-1]
     dt = data.eval.dtype
     kern = kernels.variant(k32, k64, dt)
     kernels.check_operand(lam, "lam", dt)
-    kernels.check_operand(data.eval, "eval", dt, (n,))
-    kernels.check_operand(data.UtWy, "UtWy", dt, (n, n_cvt + 1))
-    kernels.check_operand(data.wy_prod, "wy_prod", dt, (n, M))
-    kernels.check_operand(data.Utx, "Utx", dt, (S, n))
+    _one_or_lanes(lam, "lam", S)
+    check_lane_operands(data, n_cvt, dt)
     dev = data.Utx.device
     tab = kernels.pab_tables(n_cvt, str(dev))
     beta = torch.empty(S, dtype=dt, device=dev)
@@ -568,14 +666,14 @@ def _test_tail_cuda(k32, k64, lam, data: LmmBatchData, n_cvt: int):
     kern.launch(
         dev, lam.data_ptr(), data.eval.data_ptr(), data.UtWy.data_ptr(),
         data.wy_prod.data_ptr(), data.Utx.data_ptr(), tab.data_ptr(), n_cvt,
-        S, n, M, int(idx.xx), int(idx.xy), beta.data_ptr(), se.data_ptr(),
-        p.data_ptr())
+        S, n, M, int(idx.xx), int(idx.xy), int(lam.numel() > 1),
+        *lane_strides(data), beta.data_ptr(), se.data_ptr(), p.data_ptr())
     return beta, se, p
 
 
 def wald_pvalues_cuda(lam, data: LmmBatchData, n_cvt: int):
     """K4 on the card (float64 operands: its f64 instantiation)."""
-    kernels.check_operand(lam, "lam", lam.dtype, (data.Utx.shape[0],))
+    kernels.check_operand(lam, "lam", lam.dtype, (n_lanes(data),))
     return _test_tail_cuda(kernels.WALD_TAIL, kernels.WALD_TAIL_F64, lam,
                            data, n_cvt)
 
@@ -589,16 +687,17 @@ def wald_pvalues(lam, data: LmmBatchData, n_cvt: int):
 
 
 def score_pvalues_plain(lam_null, data: LmmBatchData, n_cvt: int):
-    """PyTorch version of K5: (beta, se, p_score) at the shared null
-    λ (a 0-d or one-element tensor)."""
-    lam = lam_null.reshape(1).expand(data.Utx.shape[0])
+    """PyTorch version of K5: (beta, se, p_score) at the null λ: one
+    shared by the lanes (a 0-d or one-element tensor) or one per lane
+    (S,) (gene mode: each gene's own null)."""
+    lam = lam_null.reshape(-1).expand(n_lanes(data))
     beta, se, f_stat, df = score_stats(lam, data, n_cvt)
     return beta, se, f_sf(f_stat, 1.0, df)
 
 
 def score_pvalues_cuda(lam_null, data: LmmBatchData, n_cvt: int):
     """K5 on the card (float64 operands: its f64 instantiation)."""
-    lam = lam_null.reshape(1).contiguous()
+    lam = lam_null.reshape(-1).contiguous()
     return _test_tail_cuda(kernels.SCORE_TAIL, kernels.SCORE_TAIL_F64, lam,
                            data, n_cvt)
 
@@ -606,7 +705,7 @@ def score_pvalues_cuda(lam_null, data: LmmBatchData, n_cvt: int):
 def score_pvalues(lam_null, data: LmmBatchData, n_cvt: int):
     """beta, se and p_score = f_sf(f_stat, 1, df) of every lane at the
     null model's ML λ (K5 on the card)."""
-    if data.Utx.device.type == "cpu":
+    if data.eval.device.type == "cpu":
         return score_pvalues_plain(lam_null, data, n_cvt)
     return score_pvalues_cuda(lam_null, data, n_cvt)
 
@@ -627,7 +726,12 @@ def lrt_pvalues_plain(lam, logf_H1, data: LmmBatchData, n_cvt: int,
     — logf_H1 at each lane's float32 λ_mle, logl_H0 at the null's — since
     their difference is a cancellation of two O(n) float32 sums that the
     χ²(1) tail, infinitely steep at 0, turns into p-value errors of
-    1e-2; λ enters only at second order (it is a stationary point)."""
+    1e-2; λ enters only at second order (it is a stationary point).
+
+    The null is the same block's covariate-only model (calc_null) at
+    l_mle_null: one λ shared by the lanes, or one per lane (S,) where
+    each lane has its own null (GxE, gene mode).  With l_mle_null None
+    logl_H0 is taken as given in both modes."""
     dt = data.eval.dtype
     if dt == torch.float64:
         l1, l0 = logf_H1, logl_H0
@@ -635,47 +739,57 @@ def lrt_pvalues_plain(lam, logf_H1, data: LmmBatchData, n_cvt: int,
         d64 = data._replace(eval=data.eval.double(), UtWy=data.UtWy.double(),
                             Utx=data.Utx.double())
         l1 = logf_stable(lam.double(), d64, n_cvt, False, False)
-        l0 = logf_stable(l_mle_null.double().reshape(1), d64, n_cvt, True,
-                         False)[0]
+        l0 = (logl_H0.double() if l_mle_null is None else
+              logf_stable(l_mle_null.double().reshape(-1), d64, n_cvt, True,
+                          False))
     p = chisq_sf(2.0 * (l1 - l0), 1.0)
     return l1.to(dt), p.to(dt)
 
 
 def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
                      l_mle_null, logl_H0):
-    """K6 on the card: twice in speed mode (the null lane, then the
-    SNPs), once in parity mode."""
+    """K6 on the card: twice in speed mode (the null lane(s), then the
+    SNPs), once in parity mode or where logl_H0 is given."""
     kernels.check_n_cvt(n_cvt)
-    S, n = data.Utx.shape
+    S, n = n_lanes(data), data.eval.shape[0]
     dt = data.eval.dtype
-    dev = data.Utx.device
+    dev = data.eval.device
     f64 = torch.float64
+    ustride, _, xstride = lane_strides(data)
     l1 = torch.empty(S, dtype=f64, device=dev)
     p = torch.empty(S, dtype=f64, device=dev)
     if dt == torch.float32:
         kernels.check_operand(lam, "lam", dt, (S,))
-        kernels.check_operand(data.eval, "eval", dt, (n,))
-        kernels.check_operand(data.UtWy, "UtWy", dt, (n, n_cvt + 1))
-        kernels.check_operand(data.Utx, "Utx", dt, (S, n))
-        lam0 = l_mle_null.reshape(1).contiguous()
-        kernels.check_operand(lam0, "l_mle_null", dt, (1,))
+        check_lane_operands(data, n_cvt, dt, wy=False)
         c = logf_const(n, n_cvt, False, False)   # ML: no calc_null term
-        l0 = torch.empty(1, dtype=f64, device=dev)
         ptrs = (data.eval.data_ptr(), data.UtWy.data_ptr(),
                 data.Utx.data_ptr())
-        kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam0.data_ptr(), *ptrs,
-                                n_cvt, 1, n, 1, c, None, None,
-                                l0.data_ptr(), None)
+        if l_mle_null is None:
+            l0 = logl_H0.to(f64).reshape(-1).contiguous()
+        else:
+            lam0 = l_mle_null.reshape(-1).contiguous()
+            kernels.check_operand(lam0, "l_mle_null", dt)
+            _one_or_lanes(lam0, "l_mle_null", S)
+            l0 = torch.empty(lam0.numel(), dtype=f64, device=dev)
+            kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam0.data_ptr(),
+                                    *ptrs, n_cvt, lam0.numel(), n, 1,
+                                    ustride, xstride, c, None, None, 0,
+                                    l0.data_ptr(), None)
+        kernels.check_operand(l0, "logl_H0", f64)
+        _one_or_lanes(l0, "logl_H0", S)
         kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam.data_ptr(), *ptrs,
-                                n_cvt, S, n, 0, c, None, l0.data_ptr(),
+                                n_cvt, S, n, 0, ustride, xstride, c, None,
+                                l0.data_ptr(), int(l0.numel() > 1),
                                 l1.data_ptr(), p.data_ptr())
     elif dt == f64:
         kernels.check_operand(logf_H1, "logf_H1", dt, (S,))
-        l0 = logl_H0.reshape(1).contiguous()
-        kernels.check_operand(l0, "logl_H0", dt, (1,))
+        l0 = logl_H0.reshape(-1).contiguous()
+        kernels.check_operand(l0, "logl_H0", dt)
+        _one_or_lanes(l0, "logl_H0", S)
         kernels.LRT_TAIL.launch(
-            dev, LRT_TAIL_ONLY, None, None, None, None, n_cvt, S, n, 0, 0.0,
-            logf_H1.data_ptr(), l0.data_ptr(), l1.data_ptr(), p.data_ptr())
+            dev, LRT_TAIL_ONLY, None, None, None, None, n_cvt, S, n, 0, 0, 0,
+            0.0, logf_H1.data_ptr(), l0.data_ptr(), int(l0.numel() > 1),
+            l1.data_ptr(), p.data_ptr())
     else:
         raise TypeError(f"lrt_tail takes float32 or float64, got {dt}")
     return l1.to(dt), p.to(dt)
@@ -685,7 +799,7 @@ def lrt_pvalues(lam, logf_H1, data: LmmBatchData, n_cvt: int, l_mle_null,
                 logl_H0):
     """logl_H1 and p_lrt of every lane from its ML fit (λ_mle, logf_H1)
     and the null model's (l_mle_null, logl_H0) (K6 on the card)."""
-    if data.Utx.device.type == "cpu":
+    if data.eval.device.type == "cpu":
         return lrt_pvalues_plain(lam, logf_H1, data, n_cvt, l_mle_null,
                                  logl_H0)
     return lrt_pvalues_cuda(lam, logf_H1, data, n_cvt, l_mle_null, logl_H0)

@@ -23,7 +23,11 @@ gemma_tpu/models/lmm/optimize.py does:
 In float32 on the card the grid epilogue is kernel K2 and everything
 after the grid scan — brackets, Newton over dev12, logf_stable at the
 candidates and the endpoints — is kernel K3 (csrc/lambda_solve.cu), one
-thread block per SNP; `lambda_solve_plain` is its plain version.  In
+thread block per SNP; `lambda_solve_plain` is its plain version.  Where
+each lane has its own operands (GxE, gene mode) K3 runs that search with
+float64 sums from the float32 operands and Newton to 1e-5: a gene's or
+a GxE lane's likelihood is often flat at small λ, where float32 picks
+the wrong candidate (scripts/lane_f32_gap.py).  In
 float64 on the card the whole search — the per-point dev1 scan, Brent,
 Newton, the Pab-form logf — is kernel K7 (csrc/lambda_solve_f64.cu), one
 thread block per SNP; `lambda_solve_f64_plain` is its plain version.
@@ -204,13 +208,14 @@ def fine_grid(l_min: float, l_max: float, n_region: int,
 
 def _bracket_search(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
                     calc_null: bool, reml: bool, l_min: float, l_max: float,
-                    n_region: int, refine: int,
-                    strict: bool) -> LambdaResult:
+                    n_region: int, refine: int, strict: bool,
+                    epsrel: float | None = None) -> LambdaResult:
     """Steps 2-3 for every lane from the grid's dev1 values d1f
     (n_region·refine + 1, S)."""
     dtype, dev = d1f.dtype, d1f.device
     S = d1f.shape[1]
-    epsrel = _NEWTON_EPSREL if strict else _F32_NEWTON_EPSREL
+    if epsrel is None:
+        epsrel = _NEWTON_EPSREL if strict else _F32_NEWTON_EPSREL
 
     def f_dev1(lam):
         return lk.dev1(lam, data, n_cvt, calc_null, reml)
@@ -303,32 +308,47 @@ def _bracket_search(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
                         logf=torch.where(failed, nan, best_logf))
 
 
+def _widened(data: lk.LmmBatchData) -> lk.LmmBatchData:
+    """The float32 operands as float64, for sums in float64."""
+    return data._replace(eval=data.eval.double(), UtWy=data.UtWy.double(),
+                         wy_prod=data.wy_prod.double(),
+                         Utx=data.Utx.double(), iab_logdiag=None)
+
+
 def lambda_solve_plain(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
                        calc_null: bool, reml: bool, l_min: float,
-                       l_max: float, n_region: int) -> LambdaResult:
+                       l_max: float, n_region: int,
+                       wide: bool = False) -> LambdaResult:
     """PyTorch version of K3: the float32 bracket/Newton/logf_stable
-    search from the fine grid's dev1 values."""
-    return _bracket_search(d1f, fine_np, data, n_cvt, calc_null, reml,
-                           l_min, l_max, n_region, _F32_GRID_REFINE,
-                           strict=False)
+    search from the fine grid's dev1 values.  `wide`: the same search in
+    float64 from the float32 operands, Newton to 1e-5, rounded to
+    float32 at the end (K3's per-lane instantiation)."""
+    if not wide:
+        return _bracket_search(d1f, fine_np, data, n_cvt, calc_null, reml,
+                               l_min, l_max, n_region, _F32_GRID_REFINE,
+                               strict=False)
+    r = _bracket_search(d1f.double(), fine_np, _widened(data), n_cvt,
+                        calc_null, reml, l_min, l_max, n_region,
+                        _F32_GRID_REFINE, strict=False,
+                        epsrel=_NEWTON_EPSREL)
+    return LambdaResult(lam=r.lam.float(), logf=r.logf.float())
 
 
 def lambda_solve_cuda(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
                       calc_null: bool, reml: bool, l_min: float,
-                      l_max: float, n_region: int) -> LambdaResult:
-    """K3 on the card."""
+                      l_max: float, n_region: int,
+                      wide: bool = False) -> LambdaResult:
+    """K3 on the card (`wide`: its float64-sum instantiation)."""
     kernels.check_n_cvt(n_cvt)
-    S, n = data.Utx.shape
-    M = data.wy_prod.shape[1]
+    S, n = lk.n_lanes(data), data.eval.shape[0]
+    M = data.wy_prod.shape[-1]
     Gf = n_region * _F32_GRID_REFINE + 1
     f32 = torch.float32
     kernels.check_operand(d1f, "d1f", f32, (Gf, S))
-    kernels.check_operand(data.eval, "eval", f32, (n,))
-    kernels.check_operand(data.UtWy, "UtWy", f32, (n, n_cvt + 1))
-    kernels.check_operand(data.wy_prod, "wy_prod", f32, (n, M))
-    kernels.check_operand(data.Utx, "Utx", f32, (S, n))
+    lk.check_lane_operands(data, n_cvt, f32)
     dev = d1f.device
-    fine = torch.as_tensor(fine_np, dtype=f32, device=dev)
+    fine = torch.as_tensor(fine_np, dtype=torch.float64 if wide else f32,
+                           device=dev)
     tab = kernels.pab_tables(n_cvt, str(dev))
     lam = torch.empty(S, dtype=f32, device=dev)
     logf = torch.empty_like(lam)
@@ -336,7 +356,8 @@ def lambda_solve_cuda(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
         dev, d1f.data_ptr(), fine.data_ptr(), n_region, _F32_GRID_REFINE,
         data.eval.data_ptr(), data.UtWy.data_ptr(), data.wy_prod.data_ptr(),
         data.Utx.data_ptr(), tab.data_ptr(), n_cvt, S, n, M, int(calc_null),
-        int(reml), float(l_min), float(l_max), _F32_NEWTON_EPSREL,
+        int(reml), *lk.lane_strides(data), int(wide), float(l_min),
+        float(l_max), _NEWTON_EPSREL if wide else _F32_NEWTON_EPSREL,
         _NEWTON_MAX_ITER, lk.logf_const(n, n_cvt, calc_null, reml),
         lam.data_ptr(), logf.data_ptr())
     return LambdaResult(lam=lam, logf=logf)
@@ -344,13 +365,13 @@ def lambda_solve_cuda(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
 
 def lambda_solve(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
                  calc_null: bool, reml: bool, l_min: float, l_max: float,
-                 n_region: int) -> LambdaResult:
+                 n_region: int, wide: bool = False) -> LambdaResult:
     """The float32 search after the grid scan (K3 on the card)."""
     if d1f.device.type == "cpu":
         return lambda_solve_plain(d1f, fine_np, data, n_cvt, calc_null,
-                                  reml, l_min, l_max, n_region)
+                                  reml, l_min, l_max, n_region, wide)
     return lambda_solve_cuda(d1f, fine_np, data, n_cvt, calc_null, reml,
-                             l_min, l_max, n_region)
+                             l_min, l_max, n_region, wide)
 
 
 def lambda_solve_f64_plain(data: lk.LmmBatchData, n_cvt: int,
@@ -358,7 +379,7 @@ def lambda_solve_f64_plain(data: lk.LmmBatchData, n_cvt: int,
                            l_max: float, n_region: int) -> LambdaResult:
     """PyTorch version of K7: the float64 search with GSL semantics."""
     fine_np = fine_grid(l_min, l_max, n_region, 1)
-    S = data.Utx.shape[0]
+    S = lk.n_lanes(data)
     dtype, dev = data.eval.dtype, data.eval.device
     d1f = torch.stack([
         lk.dev1(torch.full((S,), float(g), dtype=dtype, device=dev),
@@ -372,16 +393,13 @@ def lambda_solve_f64_cuda(data: lk.LmmBatchData, n_cvt: int,
                           l_max: float, n_region: int) -> LambdaResult:
     """K7 on the card."""
     kernels.check_n_cvt(n_cvt)
-    S, n = data.Utx.shape
-    M = data.wy_prod.shape[1]
+    S, n = lk.n_lanes(data), data.eval.shape[0]
+    M = data.wy_prod.shape[-1]
     f64 = torch.float64
-    kernels.check_operand(data.eval, "eval", f64, (n,))
-    kernels.check_operand(data.UtWy, "UtWy", f64, (n, n_cvt + 1))
-    kernels.check_operand(data.wy_prod, "wy_prod", f64, (n, M))
-    kernels.check_operand(data.Utx, "Utx", f64, (S, n))
+    lk.check_lane_operands(data, n_cvt, f64)
     kernels.check_operand(data.iab_logdiag, "iab_logdiag", f64,
                           (S, n_cvt + 1))
-    dev = data.Utx.device
+    dev = data.eval.device
     grid = torch.as_tensor(fine_grid(l_min, l_max, n_region, 1), dtype=f64,
                            device=dev)
     tab = kernels.pab_tables(n_cvt, str(dev))
@@ -391,10 +409,10 @@ def lambda_solve_f64_cuda(data: lk.LmmBatchData, n_cvt: int,
         dev, grid.data_ptr(), n_region, data.eval.data_ptr(),
         data.UtWy.data_ptr(), data.wy_prod.data_ptr(), data.Utx.data_ptr(),
         data.iab_logdiag.data_ptr(), tab.data_ptr(), n_cvt, S, n, M,
-        int(calc_null), int(reml), float(l_min), float(l_max),
-        _BRENT_EPSREL, _NEWTON_EPSREL, _BRENT_MAX_ITER, _NEWTON_MAX_ITER,
-        lk.logf_const(n, n_cvt, calc_null, reml), lam.data_ptr(),
-        logf.data_ptr())
+        int(calc_null), int(reml), *lk.lane_strides(data), float(l_min),
+        float(l_max), _BRENT_EPSREL, _NEWTON_EPSREL, _BRENT_MAX_ITER,
+        _NEWTON_MAX_ITER, lk.logf_const(n, n_cvt, calc_null, reml),
+        lam.data_ptr(), logf.data_ptr())
     return LambdaResult(lam=lam, logf=logf)
 
 
@@ -411,4 +429,4 @@ def calc_lambda(data: lk.LmmBatchData, n_cvt: int, calc_null: bool,
     fine_np = fine_grid(l_min, l_max, n_region, _F32_GRID_REFINE)
     d1f = lk.dev1_grid(fine_np, data, n_cvt, calc_null, reml)
     return lambda_solve(d1f, fine_np, data, n_cvt, calc_null, reml,
-                        l_min, l_max, n_region)
+                        l_min, l_max, n_region, wide=lk.per_lane(data))

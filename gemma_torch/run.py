@@ -1,8 +1,10 @@
 """Analysis drivers — the BatchRun analogue (gemma.cpp:1641-3144).
 
-The port runs `-gk 1|2` (kinship), `-eigen`, and the univariate LMM
-`-lmm 1/2/3/4/5/9` from `-k` or `-u/-d`, with `-widv` residual weights,
-on one device, in float32 (speed mode) or float64 (parity mode).  Each
+The port runs `-gk 1|2` (kinship), `-eigen`, the univariate LMM
+`-lmm 1/2/3/4/5/9` from `-k` or `-u/-d` (with `-widv` residual weights,
+`-gxe`, `-gene`, LOCO and `-ksnps`/`-gwasnps`) and the linear model
+`-lm 1/2/3/4` (with `-gene`), on one device, in float32 (speed mode) or
+float64 (parity mode).  Each
 `run_*` wires the dataset through the device code and writes
 GEMMA-compatible files; `batch_run` dispatches on a_mode like the
 reference's if-chain.
@@ -20,12 +22,16 @@ import torch
 from gemma_torch import precision
 from gemma_torch.config import GemmaConfig, check_param
 from gemma_torch.dataset import Dataset, load_dataset
-from gemma_torch.io.readers import read_eigen_d, read_eigen_u, read_kinship
+from gemma_torch import kernels
+from gemma_torch.io.readers import (read_eigen_d, read_eigen_u,
+                                    read_gene_expression, read_kinship)
 from gemma_torch.io.writers import (
-    write_matrix, write_vector, write_lmm_assoc, snp_rows_from_table,
-    ensure_outdir,
+    write_matrix, write_vector, write_lmm_assoc, write_lmm_gene_assoc,
+    write_lm_assoc, write_lm_gene_assoc, snp_rows_from_table, ensure_outdir,
 )
-from gemma_torch.models.lmm.engine import assoc_block_impl, fit_null
+from gemma_torch.models.lm import lm_block, lm_gene_block
+from gemma_torch.models.lmm.engine import (
+    assoc_block_impl, assoc_gene_block_impl, assoc_gxe_block_impl, fit_null)
 from gemma_torch.ops.center import center_matrix
 from gemma_torch.ops.eigh import eigh_zeroed, zero_eigenvalues
 from gemma_torch.ops.kinship import KinshipAccumulator
@@ -35,7 +41,6 @@ from gemma_torch.utils.validate import check_finite, validate_kinship
 
 # analysis modes outside this slice → their ROADMAP.md queue entry
 _NOT_PORTED = {
-    (51, 52, 53, 54): "queue A, \"-lm\"",
     (11, 12, 13, 14, 15, 41, 42, 43): "queue A, \"BSLMM and prediction\"",
     (25, 26, 27, 28, 61, 62, 63, 66, 67, 71, 72):
         "queue A, \"variance components and summary statistics\"",
@@ -62,14 +67,15 @@ def resolve_device(name: str) -> torch.device:
 
 def _block_size(cfg: GemmaConfig, device: torch.device,
                 n_items: int | None = None,
-                n_axis: int | None = None) -> int:
+                n_axis: int | None = None, per_lane: int = 1) -> int:
     """SNP block size for device batches, clamped to the dataset size.
 
     Unless -block-size was given, blocks grow to 16384 SNPs, backed off
-    so one (S, n) float32 block stays within a sixteenth of the card's
-    free memory (the λ search holds a few such blocks at once); on the
-    CPU the budget is 1.5 GiB.  Mirrors the reference's
-    _mesh_block_size on one device."""
+    so `per_lane` (S, n) float32 blocks stay within a sixteenth of the
+    card's free memory (the λ search holds a few such blocks at once;
+    per-lane operands add c+1 + m_wy rows per lane); on the CPU the
+    budget is 1.5 GiB.  Mirrors the reference's _mesh_block_size on one
+    device."""
     base = cfg.block_size
     if not cfg.block_size_set:
         cap = 16384
@@ -78,7 +84,7 @@ def _block_size(cfg: GemmaConfig, device: torch.device,
                 budget = torch.cuda.mem_get_info(device)[0] // 16
             else:
                 budget = 3 << 29
-            cap = max(1024, min(cap, budget // (4 * n_axis)))
+            cap = max(1024, min(cap, budget // (4 * n_axis * per_lane)))
             cap = 1 << (cap.bit_length() - 1)      # floor to pow2
         base = max(base, cap)
     bs = base
@@ -133,6 +139,41 @@ def _to_device(raw: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(raw)).to(device)
 
 
+def _assoc_snp_indices(ds: Dataset) -> np.ndarray:
+    """Indices of SNPs entering association, in file order: QC-passing,
+    restricted to gwasnps under LOCO or -gwasnps (lmm.cpp:1586)."""
+    idx = np.flatnonzero(ds.qc.indicator_snp)
+    if ds.gwasnps is not None:
+        keep = np.array([ds.geno.snps.rs[i] in ds.gwasnps for i in idx],
+                        dtype=bool)
+        idx = idx[keep]
+    return idx
+
+
+def _kinship_snp_mask(ds: Dataset) -> np.ndarray:
+    """QC mask further restricted to ksnps under LOCO or -ksnps
+    (BimbamKin gemma_io.cpp:1479)."""
+    mask = ds.qc.indicator_snp.copy()
+    if ds.ksnps is not None:
+        mask &= np.array([rs in ds.ksnps for rs in ds.geno.snps.rs],
+                         dtype=bool)
+    return mask
+
+
+def _lane_rows(c1: int, rows: int) -> int:
+    """(S, n) rows a per-lane block holds per lane: UtWy's c1 columns,
+    wy_prod's c1(c1+1)/2 and `rows` more (the operand, its rotations)."""
+    return rows + c1 + c1 * (c1 + 1) // 2
+
+
+def _gather(pending: list, names) -> dict:
+    """Per-block device statistics (NamedTuple, valid rows) → one
+    float64 numpy array per field."""
+    return {f: (torch.cat([getattr(st, f)[:k] for st, k in pending])
+                .cpu().numpy().astype(np.float64)) if pending
+            else np.zeros(0) for f in names}
+
+
 def _summary(log: RunLog, ds: Dataset, cfg: GemmaConfig, n_cvt: int,
              n_analyzed: int) -> None:
     log.summary["number of total individuals"] = ds.ni_total
@@ -153,12 +194,10 @@ def run_gk(cfg: GemmaConfig, log: RunLog | None = None,
     device = torch.device(device)
     dtype = precision.resolve_dtype(cfg.precision, device)
     log = log or RunLog(argv=["gemma_torch"], device=device)
-    if cfg.loco or cfg.file_ksnps:
-        raise _not_ported("-loco / -ksnps", "queue A, \"rest of run_lmm\"")
     with log.timer.phase("load"):
         ds = load_dataset(cfg)
     scale = cfg.gk_mode == 2 or cfg.a_mode == 22
-    mask = ds.qc.indicator_snp
+    mask = _kinship_snp_mask(ds)
 
     with log.timer.phase("kinship"):
         idx = np.flatnonzero(mask)
@@ -265,17 +304,13 @@ _STAT_NAMES = ("beta", "se", "lambda_remle", "lambda_mle", "p_wald",
 def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
             device: str | torch.device = "cuda") -> dict:
     """Univariate LMM association (-lmm 1/2/3/4/9), or the residual
-    decomposition (-lmm 5), for one phenotype."""
+    decomposition (-lmm 5), for one phenotype; with -gxe the
+    SNP-by-environment test, with -gene one test per gene."""
     device = torch.device(device)
     dtype = precision.resolve_dtype(cfg.precision, device)
     log = log or RunLog(argv=["gemma_torch"], device=device)
     if cfg.a_mode not in (1, 2, 3, 4, 5, 9):
         raise ValueError(f"run_lmm runs -lmm 1-5 and 9, not {cfg.a_mode}")
-    for flag, on in (("-loco", cfg.loco), ("-ksnps", cfg.file_ksnps),
-                     ("-gwasnps", cfg.file_gwasnps),
-                     ("-gxe", cfg.file_gxe), ("-gene", cfg.file_gene)):
-        if on:
-            raise _not_ported(flag, "queue A, \"rest of run_lmm\"")
     if cfg.n_ph != 1:
         raise _not_ported("more than one -n phenotype (mvLMM)",
                           "queue A, \"mvLMM\"")
@@ -299,6 +334,8 @@ def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
         beta_remle_null=nf.beta_remle.cpu().double().numpy().tolist(),
         se_beta_remle_null=nf.se_beta_remle.cpu().double().numpy().tolist(),
     )
+    if cfg.file_gene:
+        return _lmm_gene(cfg, log, ds, eval_, U, UtW, Uty, dtype, device)
 
     if cfg.a_mode == 5:
         # -lmm 5 writes only the residual decomposition, and runs no
@@ -319,8 +356,138 @@ def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
         log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
         return dict(null=nf, dataset=ds)
 
-    idx = np.flatnonzero(ds.qc.indicator_snp)      # file order
+    idx = _assoc_snp_indices(ds)                   # file order
     n = ds.ni_test
+    per_lane = 1
+    if ds.gxe is not None:
+        # GxE: each lane's covariates are [W, env, x] (lmm.cpp:2283-2431)
+        env = torch.as_tensor(ds.gxe, dtype=dtype, device=device)
+        Ut_env = U.T @ env
+        if device.type == "cuda":
+            kernels.check_n_cvt(n_cvt + 2)
+        per_lane = _lane_rows(n_cvt + 3, 4)
+    bs = _block_size(cfg, device, len(idx), n_axis=n, per_lane=per_lane)
+    with log.timer.phase("opt"):
+        pending = []
+        for s in range(0, len(idx), bs):
+            sel = idx[s:s + bs]
+            raw = _raw_wire_block(ds, sel, bs, dtype, all_individuals=False)
+            x = prologue(_to_device(raw, device), n, IMPUTE, dtype=dtype)
+            if ds.gxe is None:
+                st = assoc_block_impl(eval_, UtW, Uty, x @ U, nf.l_mle,
+                                      nf.logl_mle, n_cvt=n_cvt,
+                                      mode=cfg.a_mode, l_min=cfg.l_min,
+                                      l_max=cfg.l_max, n_region=cfg.n_region)
+            else:
+                # minor-allele coding where the imputed mean exceeds 1,
+                # and beta's sign restored (lmm.cpp:2362-2370)
+                flip = x.sum(dim=1, dtype=torch.float64) / n > 1.0
+                x = torch.where(flip[:, None], 2.0 - x, x)
+                st = assoc_gxe_block_impl(
+                    eval_, UtW, Ut_env, Uty, x @ U, (x * env) @ U, nf.l_mle,
+                    nf.logl_mle, n_cvt=n_cvt, mode=cfg.a_mode,
+                    l_min=cfg.l_min, l_max=cfg.l_max, n_region=cfg.n_region)
+                st = st._replace(beta=torch.where(flip, -st.beta, st.beta))
+            pending.append((st, len(sel)))
+        stats = _gather(pending, _STAT_NAMES)
+
+    ensure_outdir(cfg.path_out)
+    with log.timer.phase("write"):
+        rows = snp_rows_from_table(ds.geno.snps, ds.qc, idx)
+        write_lmm_assoc(f"{cfg.out_prefix()}.assoc.txt", cfg.a_mode, rows,
+                        _out_stats(stats))
+    _summary(log, ds, cfg, n_cvt, len(idx))
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return dict(stats=_out_stats(stats), null=nf, snp_indices=idx,
+                dataset=ds)
+
+
+def _out_stats(stats: dict) -> dict:
+    """SUMSTAT field names → the assoc.txt column names."""
+    return dict(beta=stats["beta"], se=stats["se"], logl_H1=stats["logl_H1"],
+                l_remle=stats["lambda_remle"], l_mle=stats["lambda_mle"],
+                p_wald=stats["p_wald"], p_lrt=stats["p_lrt"],
+                p_score=stats["p_score"])
+
+
+def _lmm_gene(cfg: GemmaConfig, log: RunLog, ds: Dataset, eval_, U, UtW,
+              Uty, dtype: torch.dtype, device: torch.device) -> dict:
+    """-lmm with -gene: each gene's expression is the response and the
+    phenotype the predictor (gemma.cpp:2675-2692, lmm.cpp:1365-1471)."""
+    gene_ids, expr = read_gene_expression(cfg.file_gene)
+    expr_test = np.ascontiguousarray(expr[:, ds.indicator_idv])
+    n_cvt = ds.n_cvt
+    gb = _block_size(cfg, device, len(gene_ids), n_axis=ds.ni_test,
+                     per_lane=_lane_rows(n_cvt + 1, 2))
+    with log.timer.phase("opt"):
+        pending = []
+        for s in range(0, len(gene_ids), gb):
+            blk = torch.as_tensor(expr_test[s:s + gb], dtype=dtype,
+                                  device=device)
+            st = assoc_gene_block_impl(eval_, UtW, Uty, blk @ U,
+                                       n_cvt=n_cvt, mode=cfg.a_mode,
+                                       l_min=cfg.l_min, l_max=cfg.l_max,
+                                       n_region=cfg.n_region)
+            pending.append((st, blk.shape[0]))
+        stats = _out_stats(_gather(pending, _STAT_NAMES))
+    ensure_outdir(cfg.path_out)
+    with log.timer.phase("write"):
+        write_lmm_gene_assoc(f"{cfg.out_prefix()}.assoc.txt", cfg.a_mode,
+                             gene_ids, stats)
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.summary["number of covariates"] = n_cvt
+    log.summary["number of phenotypes"] = cfg.n_ph
+    log.summary["number of total genes"] = len(gene_ids)
+    log.summary["number of analyzed genes"] = len(gene_ids)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return dict(stats=stats, gene_ids=gene_ids, dataset=ds)
+
+
+# ---------------------------------------------------------------------------
+# -lm: linear model
+
+_LM_NAMES = ("beta", "se", "p_wald", "p_lrt", "p_score")
+
+
+def run_lm(cfg: GemmaConfig, log: RunLog | None = None,
+           device: str | torch.device = "cuda") -> dict:
+    """Linear-model association (-lm 1/2/3/4, lm.cpp), per SNP or, with
+    -gene, per gene (the phenotype is then the predictor)."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    W = torch.as_tensor(ds.W, dtype=dtype, device=device)
+    y = torch.as_tensor(ds.Y[:, 0], dtype=dtype, device=device)
+    n = ds.ni_test
+
+    if cfg.file_gene:
+        # LM::AnalyzeGene, lm.cpp:290-384; gemma.cpp:2076-2086
+        gene_ids, expr = read_gene_expression(cfg.file_gene)
+        expr_test = np.ascontiguousarray(expr[:, ds.indicator_idv])
+        gb = _block_size(cfg, device, len(gene_ids), n_axis=n)
+        with log.timer.phase("opt"):
+            pending = []
+            for s in range(0, len(gene_ids), gb):
+                blk = torch.as_tensor(expr_test[s:s + gb], dtype=dtype,
+                                      device=device)
+                pending.append((lm_gene_block(W, y, blk, mode=cfg.a_mode),
+                                blk.shape[0]))
+            stats = _gather(pending, _LM_NAMES)
+        ensure_outdir(cfg.path_out)
+        with log.timer.phase("write"):
+            write_lm_gene_assoc(f"{cfg.out_prefix()}.assoc.txt", cfg.a_mode,
+                                gene_ids, stats)
+        log.summary["number of total individuals"] = ds.ni_total
+        log.summary["number of analyzed individuals"] = ds.ni_test
+        log.summary["number of covariates"] = ds.n_cvt
+        log.summary["number of total genes"] = len(gene_ids)
+        log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+        return dict(stats=stats, gene_ids=gene_ids, dataset=ds)
+
+    idx = _assoc_snp_indices(ds)
     bs = _block_size(cfg, device, len(idx), n_axis=n)
     with log.timer.phase("opt"):
         pending = []
@@ -328,30 +495,16 @@ def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
             sel = idx[s:s + bs]
             raw = _raw_wire_block(ds, sel, bs, dtype, all_individuals=False)
             x = prologue(_to_device(raw, device), n, IMPUTE, dtype=dtype)
-            Utx = x @ U
-            st = assoc_block_impl(eval_, UtW, Uty, Utx, nf.l_mle,
-                                  nf.logl_mle, n_cvt=n_cvt, mode=cfg.a_mode,
-                                  l_min=cfg.l_min, l_max=cfg.l_max,
-                                  n_region=cfg.n_region)
-            pending.append((st, len(sel)))
-        stats = {f: (torch.cat([getattr(st, f)[:k] for st, k in pending])
-                     .cpu().numpy().astype(np.float64)) if pending
-                 else np.zeros(0) for f in _STAT_NAMES}
-
-    out_stats = dict(beta=stats["beta"], se=stats["se"],
-                     logl_H1=stats["logl_H1"],
-                     l_remle=stats["lambda_remle"],
-                     l_mle=stats["lambda_mle"],
-                     p_wald=stats["p_wald"], p_lrt=stats["p_lrt"],
-                     p_score=stats["p_score"])
+            pending.append((lm_block(W, y, x, mode=cfg.a_mode), len(sel)))
+        stats = _gather(pending, _LM_NAMES)
     ensure_outdir(cfg.path_out)
     with log.timer.phase("write"):
         rows = snp_rows_from_table(ds.geno.snps, ds.qc, idx)
-        write_lmm_assoc(f"{cfg.out_prefix()}.assoc.txt", cfg.a_mode, rows,
-                        out_stats)
-    _summary(log, ds, cfg, n_cvt, len(idx))
+        write_lm_assoc(f"{cfg.out_prefix()}.assoc.txt", cfg.a_mode, rows,
+                       stats)
+    _summary(log, ds, cfg, ds.n_cvt, len(idx))
     log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
-    return dict(stats=out_stats, null=nf, snp_indices=idx, dataset=ds)
+    return dict(stats=stats, snp_indices=idx, dataset=ds)
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +526,8 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
         run_eigen(cfg, log, dev)
     elif cfg.a_mode in (1, 2, 3, 4, 5, 9):
         run_lmm(cfg, log, dev)
+    elif cfg.a_mode in (51, 52, 53, 54):
+        run_lm(cfg, log, dev)
     else:
         for modes, entry in _NOT_PORTED.items():
             if cfg.a_mode in modes:
