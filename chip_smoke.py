@@ -19,7 +19,13 @@
                   1 -a` (19 chromosomes, as the PLINK .bim), `-lmm 4
                   -gxe` (a binary environment) and `-lmm 4 -gene` (2,048
                   genes) in float32 and float64, `-lm 4` with and
-                  without `-gene` and in float64.
+                  without `-gene` and in float64;
+     (f) mvLMM    at the releases.org protocol shape (n = 757, p =
+                  10,775, 3% missing, two traits with h² 0.4, genetic
+                  correlation 0.5, environmental 0.3, 8 causal SNPs):
+                  `-gk`, `-lmm 1 -n 1 2` cold and warm (SNPs/s), `-lmm
+                  4 -n 1 2` and `-lmm 4 -n 1 2 -gxe` in float32 and
+                  float64, `-lmm 1 -n 1 2 3 4 5` on the first 1,024 SNPs.
    Every kernel's launch count is set to 0 just before each path and
    read just after; each kernel of the path must have launched.
 3. Checks the output against the port's own float64 path on the CPU on
@@ -32,12 +38,16 @@
    files, first 1024 SNPs or genes: within 1e-3 in float32, >= 97%
    finite and no NaN p_lrt in gene mode, within 1e-6 in float64 with
    >= 99.9% the same NaN lanes; its float64 LOCO kinship within 1e-9 of
-   the CPU's.
+   the CPU's; (f)'s against the port's float64 CPU run, first 256 SNPs:
+   within 1e-3 in float32 (>= 97% finite), within 1e-6 in float64 on
+   every lane whose K9 iteration count equals the CPU's (>= 99% of
+   lanes) and 1e-3 on all; -n 1 2 3 4 5: >= 97% finite p-values.
 4. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main path's shapes (n = 1940, S = the run's
    block, c = 1, and c = 3 for K2-K7; the per-lane forms of K2-K7 at the
    GxE shapes, c = 1 plus env and x, and at the gene shapes, 2,048
-   genes; K8 on SNP rows and gene rows), with the tolerances below, and
+   genes; K8 on SNP rows and gene rows; K9-K11 on 2,048 lanes of the
+   mvLMM protocol block and at its GxE shapes), with the tolerances below, and
    times both (CUDA events, median after warm-up, L2 flushed between
    runs).
 5. Prints the card's name and power limit, the kernels line and, last,
@@ -108,6 +118,21 @@ TOL = {
     "lm_tail": "|p - p_plain| <= 1e-6, |beta - beta_plain| <= 1e-5 se",
     "lm_tail_f64": "|p - p_plain| <= 1e-12, "
                    "|beta - beta_plain| <= 1e-10 se",
+    # K9-K11 compute in float64 from the same operands in both; the EM's
+    # exit test |Δlogl| < 1e-3 may flip at its boundary on a rounding
+    # difference, so the converged form compares p on the lanes that
+    # left at the same iteration (float64) or at the speed-mode contract
+    "mph_em": "capped (50 iterations, prec 0): Vg, Ve, logl rel <= 1e-6; "
+              "converged (-lmm 1's form): |p_wald - p_wald_plain| <= 1e-3 "
+              "through the same (plain) tail",
+    "mph_em_f64": "capped: Vg, Ve, logl rel <= 1e-10; converged: "
+                  "|p_wald - p_wald_plain| <= 1e-6 on lanes with the same "
+                  "iteration count (>= 99% of lanes), every lane <= 1e-3",
+    "mph_calc_p": "|p - p_plain| <= 1e-5, |beta - beta_plain| <= 1e-3 se",
+    "mph_calc_p_f64": "|p - p_plain| <= 1e-10, "
+                      "|beta - beta_plain| <= 1e-8 se",
+    "mph_nr": "logl rel <= 1e-10, Hvar rel <= 1e-8",
+    "mph_nr_f64": "logl rel <= 1e-10, Hvar rel <= 1e-8",
 }
 # the per-lane forms of K2-K7 (GxE, gene mode) are held to their shared
 # forms' tolerances, but for the float32 tests: at GxE's 3 covariates
@@ -124,6 +149,10 @@ MOUSE_N, MOUSE_P = 1940, 12226
 PLINK_N, PLINK_P, PLINK_COV = 400, 2000, 2
 CHECK_SNPS = 1024
 P_COLS = ("p_wald", "p_lrt", "p_score")
+# phase (f): the releases.org mvLMM protocol shape (bench.py:78)
+MV_N, MV_P, MV_TRAITS, MV_CAUSAL, MV_CHECK = 757, 10775, 5, 8, 256
+MV_LANES = 2048          # lanes of the protocol block the kernels are held on
+RESULTS = {}             # -o tag → what batch_run returned
 
 
 def _fail(msg):
@@ -208,6 +237,128 @@ def _synth_slice3(td, pheno, n=MOUSE_N, p=MOUSE_P, seed=3):
     return env, E
 
 
+def _synth_mv(td, n=MV_N, p=MV_P, seed=4):
+    """The mvLMM set at the releases.org protocol shape (BIMBAM gz, 3%
+    missing): MV_TRAITS traits with h² = 0.4, genetic correlation 0.5 and
+    environmental 0.3 between every pair, MV_CAUSAL SNPs with effects on
+    the first two; a binary environment; the first MV_CHECK and 1,024
+    SNPs' names."""
+    rng = np.random.default_rng(seed)
+    geno = os.path.join(td, "mv_geno.txt.gz")
+    maf = rng.uniform(0.05, 0.5, p)
+    X = rng.binomial(2, maf[:, None], size=(p, n)).astype(np.int8)
+    miss = rng.random((p, n)) < 0.03
+    with gzip.open(geno, "wt", compresslevel=1) as fh:
+        for j in range(p):
+            vals = np.char.mod("%d", X[j]).astype(object)
+            vals[miss[j]] = "NA"
+            fh.write(f"rs{j}, A, T, " + ", ".join(vals) + "\n")
+    Xs = (X - X.mean(1, keepdims=True)) / (X.std(1, keepdims=True) + 1e-12)
+    k = MV_TRAITS
+
+    def corr(r):
+        return np.linalg.cholesky(np.full((k, k), r) + (1 - r) * np.eye(k))
+
+    G = Xs.T @ (rng.normal(size=(p, k)) @ corr(0.5).T)
+    E = rng.normal(size=(n, k)) @ corr(0.3).T
+    Y = (G / G.std(0) * np.sqrt(0.4) + E / E.std(0) * np.sqrt(0.6))
+    causal = np.arange(MV_CAUSAL) * (p // MV_CAUSAL) + 7
+    Y[:, :2] += Xs[causal].T @ rng.uniform(0.15, 0.3, (MV_CAUSAL, 2))
+    pheno = os.path.join(td, "mv_pheno.txt")
+    np.savetxt(pheno, Y, fmt="%.6f", delimiter="\t")
+    np.savetxt(os.path.join(td, "mv_env.txt"), rng.integers(0, 2, n),
+               fmt="%d")
+    for name, m in (("mv_first.snps", MV_CHECK), ("mv_1024.snps", 1024)):
+        with open(os.path.join(td, name), "w") as fh:
+            fh.write("\n".join(f"rs{j}" for j in range(m)) + "\n")
+    return geno, pheno, causal
+
+
+def _mv_close(got, ref, tol, min_finite, match=None):
+    """|Δp| of a card result against the CPU's on the CPU's SNPs.  With
+    `match` (float64): within `tol` on lanes whose K9 iteration count in
+    the column's fit equals the CPU's (p_score has no fit), >= `match` of
+    lanes agreeing in count, and every lane within 1e-3."""
+    pos = {s: i for i, s in enumerate(got["snp_indices"])}
+    rows = np.array([pos[s] for s in ref["snp_indices"]])
+    out = {}
+    for col, fit in (("p_wald", 1), ("p_lrt", 0), ("p_score", None)):
+        g, r = got["stats"][col][rows], ref["stats"][col]
+        if not np.any(r) or not np.any(g):
+            continue
+        both = np.isfinite(g) & np.isfinite(r)
+        err = np.abs(g - r)
+        same = np.ones(len(r), bool)
+        if match is not None and fit is not None:
+            same = (got["stats"]["em_iters"][rows, fit]
+                    == ref["stats"]["em_iters"][:, fit])
+        sel = both & same
+        e = float(err[sel].max()) if sel.any() else 0.0
+        e_all = float(err[both].max()) if both.any() else 0.0
+        out[col] = {"max_abs": e, "max_abs_all": e_all,
+                    "finite": float(both.mean()),
+                    "same_iters": float(same.mean())}
+        bad = both.mean() < min_finite or e > tol
+        if match is not None:
+            bad = bad or same.mean() < match or e_all > 1e-3
+        if bad:
+            raise RuntimeError(f"mvLMM {col} vs the float64 CPU path: "
+                               f"{out[col]}")
+    return out
+
+
+def _mv_operands(argv, dev):
+    """The rotated operands of the mvLMM paths on the card, float32 and
+    float64: eval, X0 (intercept), X0e (with env), Y (2 traits), the
+    first MV_LANES SNPs' rows [x] (R1) and [x, x∘env] (R2), and the null
+    fits of both designs."""
+    import torch
+    from gemma_torch.cli import parse_args
+    from gemma_torch.dataset import load_dataset
+    from gemma_torch.models.mvlmm import MvlmmNull
+    from gemma_torch.ops.pack2 import IMPUTE, prologue
+    from gemma_torch.run import (_assoc_snp_indices, _load_or_compute_eigen,
+                                 _raw_wire_block, _to_device)
+    from gemma_torch.utils.log import RunLog
+    cfg = parse_args(argv)
+    ds = load_dataset(cfg)
+    idx = _assoc_snp_indices(ds)[:MV_LANES]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        ev, U, _ = _load_or_compute_eigen(cfg, ds, RunLog(argv=[]), dt, dev)
+        X0 = (U.T @ torch.as_tensor(ds.W, dtype=dt, device=dev)).T
+        Y = (U.T @ torch.as_tensor(ds.Y, dtype=dt, device=dev)).T
+        env = torch.as_tensor(ds.gxe, dtype=dt, device=dev)
+        X0e = torch.cat([X0, (U.T @ env)[None]]).contiguous()
+        raw = _raw_wire_block(ds, idx, len(idx), dt, all_individuals=False)
+        x = prologue(_to_device(raw, dev), ds.ni_test, IMPUTE, dtype=dt)
+        Utx, Utxe = x @ U, (x * env) @ U
+        X0, Y = X0.contiguous(), Y.contiguous()
+        out[dt] = dict(ev=ev, X0=X0, Y=Y, X0e=X0e,
+                       R1=Utx[:, None].contiguous(),
+                       R2=torch.stack([Utx, Utxe], 1).contiguous(),
+                       null=MvlmmNull(ev, X0, Y, cfg),
+                       null_x=MvlmmNull(ev, X0e, Y, cfg))
+    return out
+
+
+def _mv_sums(d, c, kind):
+    """(sums, flops per individual) of one pass of K9-K11 (the families
+    of csrc/mvlmm_lane.cuh; a sum of f factors costs f flops per
+    individual)."""
+    tc, td = c * (c + 1) // 2, d * (d + 1) // 2
+    fam = {
+        "core": [(d * tc, 3), (d * c, 3), (d, 3), (d, 1)],
+        "em_a_reml": [(2 * d, 2)],
+        "em_b_reml": [(td, 2), (td, 3), (d, 3), (d, 4)],
+        "p": [(d * tc, 3), (d * c, 3)],
+        "nr_a": [(3 * td, 3), (2 * d, 2), (2 * td * tc, 5)],
+        "nr_b": [(2 * td, 3), (3 * d * td, 4), (2 * d * d * c, 4),
+                 (3 * d * d, 5), (2 * d, 4)],
+    }[kind]
+    return sum(k for k, _ in fam), sum(k * f for k, f in fam)
+
+
 def _read_assoc(path):
     """(rs list, {column: float array}) of an assoc.txt (geneID for the
     gene-mode files)."""
@@ -243,9 +394,13 @@ def _run(argv, device):
     import torch
     t0 = time.time()
     argv = argv + ["-silence"]
-    batch_run(parse_args(argv), argv=["gemma_torch"] + argv, device=device)
+    res = batch_run(parse_args(argv), argv=["gemma_torch"] + argv,
+                    device=device)
     if device == "cuda":
         torch.cuda.synchronize()
+    if isinstance(res, dict) and "em_iters" in res.get("stats", {}):
+        RESULTS[argv[argv.index("-o") + 1]] = {
+            k: res[k] for k in ("stats", "snp_indices")}
     return time.time() - t0
 
 
@@ -332,6 +487,215 @@ def _say(obj):
     print(line, flush=True)
     with open(REPORT, "a") as fh:
         fh.write(line + "\n")
+
+
+def _drive_mvlmm(kernels, paths, td, f64, dev):
+    """Phase (f): the mvLMM paths on the card at the protocol shape and
+    their output checks against the port's float64 CPU run; returns
+    the paths' launch counts and the kernels' operands."""
+    t_f = time.time()
+    mv_geno, mv_pheno, causal = _synth_mv(td)
+    _say({"phase": "data_mvlmm", "seconds": time.time() - t_f})
+    base = f"-g {mv_geno} -p {mv_pheno} -outdir {td} -no-check".split()
+    mvk = base + f"-k {td}/MK.cXX.txt".split()
+    mvx = f"-gxe {td}/mv_env.txt".split()
+    n12 = "-n 1 2".split()
+    mv32 = ("mph_em", "mph_calc_p", "mph_nr")
+    mv64 = ("mph_em_f64", "mph_calc_p_f64", "mph_nr_f64")
+    counts_f = {
+        "gk": _drive(kernels, paths, "mv_gk", [
+            ("mv_gk", base + "-gk 1 -o MK".split())], ("geno_prologue",)),
+        "lmm1": _drive(kernels, paths, "mv_lmm1", [
+            ("mv_lmm1_cold", mvk + n12 + "-lmm 1 -o M1".split()),
+            ("mv_lmm1_warm", mvk + n12 + "-lmm 1 -o M1w".split())],
+            mv32),
+        "lmm4": _drive(kernels, paths, "mv_lmm4", [
+            ("mv_lmm4", mvk + n12 + "-lmm 4 -o M4".split())], mv32),
+        "lmm4_f64": _drive(kernels, paths, "mv_lmm4_f64", [
+            ("mv_lmm4_f64", mvk + n12 + f64 + "-lmm 4 -o M4d".split())],
+            mv64),
+        "gxe": _drive(kernels, paths, "mv_gxe", [
+            ("mv_gxe_lmm4", mvk + n12 + mvx + "-lmm 4 -o MX4".split())],
+            mv32),
+        "gxe_f64": _drive(kernels, paths, "mv_gxe_f64", [
+            ("mv_gxe_lmm4_f64", mvk + n12 + mvx + f64
+             + "-lmm 4 -o MX4d".split())], mv64),
+        "d5": _drive(kernels, paths, "mv_d5", [
+            ("mv_lmm1_d5", mvk + f"-snps {td}/mv_1024.snps -n 1 2 3 4 5 "
+             "-lmm 1 -o M5".split())], mv32),
+    }
+    _say({"phase": "e2e_mvlmm", "paths": {
+        k: v for k, v in paths.items() if k.startswith("mv_")}})
+    cold, warm = (s for _, s in paths["mv_lmm1"]["secs"])
+    n_mv = len(RESULTS["M1"]["snp_indices"])
+    prof_mv = _profile(mvk + n12 + "-lmm 1 -o MW".split())
+    _say({"phase": "profile_mvlmm1_warm", **prof_mv})
+    _say({"phase": "mvlmm_protocol", "snps": n_mv, "cold_s": cold,
+          "warm_s": warm, "snps_per_s_cold": n_mv / cold,
+          "snps_per_s_warm": n_mv / warm,
+          "log_seconds": _log_times(f"{td}/M1w.log.txt"),
+          "causal_p_wald": RESULTS["M1"]["stats"]["p_wald"][
+              np.searchsorted(RESULTS["M1"]["snp_indices"],
+                              causal)].tolist()})
+    # against the port's float64 CPU run, first MV_CHECK SNPs
+    t0 = time.time()
+    first = f"-snps {td}/mv_first.snps".split()
+    _run(mvk + n12 + first + "-lmm 4 -o MC".split(), "cpu")
+    _run(mvk + n12 + first + mvx + "-lmm 4 -o MXC".split(), "cpu")
+    chk_f = {"cpu_f64_seconds": time.time() - t0}
+    for tag, ref_tag, tol, match in (
+            ("M1", "MC", 1e-3, None), ("M4", "MC", 1e-3, None),
+            ("M4d", "MC", 1e-6, 0.99), ("MX4", "MXC", 1e-3, None),
+            ("MX4d", "MXC", 1e-6, 0.99)):
+        chk_f[tag] = _mv_close(RESULTS[tag], RESULTS[ref_tag], tol, 0.97,
+                               match=match)
+    p5 = RESULTS["M5"]["stats"]["p_wald"]
+    fin5 = float(np.isfinite(p5).mean())
+    if fin5 < 0.97 or not ((p5[np.isfinite(p5)] >= 0)
+                           & (p5[np.isfinite(p5)] <= 1)).all():
+        raise RuntimeError(f"-n 1 2 3 4 5: {fin5:.4f} finite p_wald")
+    chk_f["d5_p_wald_finite"] = fin5
+    chk_f["phase_f_seconds"] = time.time() - t_f
+    _say({"phase": "check_mvlmm", **chk_f})
+    # the kernels' operands: the protocol block's first MV_LANES SNPs
+    return counts_f, _mv_operands(mvk + n12 + mvx + ["-lmm", "1"], dev)
+
+
+def _hold_mvlmm(mv_ops, counts_f, record, check, amax, dev):
+    """K9-K11 against their plain versions on the card, on the protocol
+    block's first MV_LANES lanes (n = 757, d = 2, design 1 + x) and at the
+    GxE shapes (1 + env + x + x∘env), float32 and float64 operands; the
+    float32 rows report the -lmm 1 protocol path's launches, the float64
+    rows the parity -lmm 4 path's, their GxE forms the -gxe paths'."""
+    import torch
+    from gemma_torch.models import mvlmm_core as mvc
+    f32, f64 = torch.float32, torch.float64
+
+    def mrel(a, b):
+        ok = torch.isfinite(a) & torch.isfinite(b)
+        return float((a[ok] - b[ok]).abs().max() / b[ok].abs().max())
+
+    for dt, sfx, cnt, cnt_x in (
+            (f32, "", counts_f["lmm1"], counts_f["gxe"]),
+            (f64, "_f64", counts_f["lmm4_f64"], counts_f["gxe_f64"])):
+        o = mv_ops[dt]
+        ev, X0, X0e, Y, R1, R2 = (o[k] for k in ("ev", "X0", "X0e", "Y", "R1",
+                                                 "R2"))
+        S_, n_ = R1.shape[0], ev.shape[0]
+        R2 = R2[:S_ // 2].contiguous()
+        isz = torch.finfo(dt).bits // 8
+        Vs, Es = o["null"].Vg_start[None], o["null"].Ve_start[None]
+        B0 = o["null"].B_start[None]
+        Vx, Ex = o["null_x"].Vg_start[None], o["null_x"].Ve_start[None]
+        Bx = torch.cat([o["null_x"].B_start,
+                        torch.zeros((2, 1), dtype=f64, device=dev)], 1)[None]
+        # K9: a fixed cap of 50 iterations with prec = 0, REML and ML, at
+        # both shapes; then converged as the -lmm 1 path runs it
+        name = "mph_em" + sfx
+        cap_err = 0.0
+        for X0_, R, V, E, B in ((X0, R1, Vs, Es, B0), (X0e, R2, Vx, Ex, Bx)):
+            for reml in (True, False):
+                a = (reml, 50, 0.0, ev, X0_, Y, R, V, E, B)
+                kk, pp = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
+                cap_err = max(cap_err, mrel(kk.Vg, pp.Vg), mrel(kk.Ve, pp.Ve),
+                              mrel(kk.logl, pp.logl))
+        cap = 1000 if dt == f64 else mvc.nr_switch_point(1000)
+        a = (True, cap, 1e-3, ev, X0, Y, R1, Vs, Es, B0, True)
+        kk, pp = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
+        pk = mvc.mph_calc_p_plain(ev, X0, Y, R1, kk.Vg, kk.Ve).p
+        pq = mvc.mph_calc_p_plain(ev, X0, Y, R1, pp.Vg, pp.Ve).p
+        same = kk.iters == pp.iters
+        dp = (pk - pq).abs().nan_to_num(0.0)
+        err = float(dp[same].max())
+        ok = cap_err <= (1e-10 if dt == f64 else 1e-6)
+        ok = ok and (err <= 1e-6 and float(same.double().mean()) >= 0.99
+                     and float(dp.max()) <= 1e-3 if dt == f64
+                     else float(dp.max()) <= 1e-3)
+        ms = _time_ms(lambda: mvc.mph_em_cuda(*a), 3)
+        pms = _time_ms(lambda: mvc.mph_em_plain(*a), 1)
+        its = float((kk.iters.double() + 1).sum())
+        check(name, ok, {"capped_max_rel_err": cap_err, "p_max_abs_err": err,
+                         "p_max_abs_err_all": float(dp.max()),
+                         "same_iters": float(same.double().mean()),
+                         "mean_iters": its / S_, "S": S_, "n": n_, "ms": ms,
+                         "plain_ms": pms})
+        flops = sum(_mv_sums(2, 2, k)[1]
+                    for k in ("core", "em_a_reml", "em_b_reml"))
+        record(name, max(err, cap_err), ms, pms,
+               isz * (n_ + X0.numel() + Y.numel() + R1.numel())
+               + 8 * S_ * (2 * 4 + 4 + 2), its * n_ * flops,
+               peak=PEAK_F64_PER_S, launches=cnt)
+        # the GxE H1 fit's form: REML from the null, to convergence
+        a = (True, 1000, 1e-3, ev, X0e, Y, R2, Vx, Ex, Bx)
+        kx, px = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
+        same = kx.iters == px.iters
+        dp = (mvc.mph_calc_p_plain(ev, X0e, Y, R2, kx.Vg, kx.Ve).p
+              - mvc.mph_calc_p_plain(ev, X0e, Y, R2, px.Vg, px.Ve).p
+              ).abs().nan_to_num(0.0)
+        err = float(dp[same].max()) if bool(same.any()) else 0.0
+        ok = (err <= 1e-6 and float(same.double().mean()) >= 0.99
+              and float(dp.max()) <= 1e-3 if dt == f64
+              else float(dp.max()) <= 1e-3)
+        ms = _time_ms(lambda: mvc.mph_em_cuda(*a), 3)
+        pms = _time_ms(lambda: mvc.mph_em_plain(*a), 1)
+        its = float((kx.iters.double() + 1).sum())
+        S2 = R2.shape[0]
+        check(name, ok, {"block": "gxe", "p_max_abs_err": err,
+                         "p_max_abs_err_all": float(dp.max()),
+                         "same_iters": float(same.double().mean()),
+                         "mean_iters": its / S2, "S": S2, "ms": ms,
+                         "plain_ms": pms})
+        flops = sum(_mv_sums(2, 4, k)[1]
+                    for k in ("core", "em_a_reml", "em_b_reml"))
+        record(name, err, ms, pms,
+               isz * (n_ + X0e.numel() + Y.numel() + R2.numel())
+               + 8 * S2 * (2 * 4 + 8 + 2), its * n_ * flops,
+               peak=PEAK_F64_PER_S, launches=cnt_x, form="gxe")
+        # K10 at the converged EM's (Vg, Ve), and at the GxE shapes
+        name = "mph_calc_p" + sfx
+        for form, X0_, R, V, E in ((None, X0, R1, kk.Vg, kk.Ve),
+                                   ("gxe", X0e, R2, Vx, Ex)):
+            a = (ev, X0_, Y, R, V, E)
+            ck, cq = mvc.mph_calc_p_cuda(*a), mvc.mph_calc_p_plain(*a)
+            se = torch.sqrt(torch.diagonal(cq.Vbeta, dim1=-2, dim2=-1))
+            err = amax(ck.p, cq.p)
+            beta_se = float(((ck.beta - cq.beta).abs() / se).max())
+            ms = _time_ms(lambda: mvc.mph_calc_p_cuda(*a), 10)
+            pms = _time_ms(lambda: mvc.mph_calc_p_plain(*a), 3)
+            S2, c_ = R.shape[0], X0_.shape[0] + R.shape[1]
+            check(name, err <= (1e-10 if dt == f64 else 1e-5)
+                  and beta_se <= (1e-8 if dt == f64 else 1e-3),
+                  {"max_abs_err": err, "beta_max_err_over_se": beta_se,
+                   "block": form or "snp", "S": S2, "ms": ms,
+                   "plain_ms": pms})
+            record(name, err, ms, pms,
+                   isz * (R.numel() + X0_.numel() + Y.numel() + n_)
+                   + 8 * S2 * (2 * 4 + 3 + 2 + 4),
+                   S2 * n_ * _mv_sums(2, c_, "p")[1], peak=PEAK_F64_PER_S,
+                   launches=cnt_x if form else cnt, form=form)
+        # K11 from the converged EM (REML, the refinement's form) and at
+        # the GxE shapes from the null
+        name = "mph_nr" + sfx
+        for form, X0_, R, V, E in ((None, X0, R1, kk.Vg, kk.Ve),
+                                   ("gxe", X0e, R2, Vx, Ex)):
+            a = (True, 10, 1e-3, ev, X0_, Y, R, V, E)
+            nk, nq = mvc.mph_nr_cuda(*a), mvc.mph_nr_plain(*a)
+            l_rel, h_rel = mrel(nk[2], nq[2]), mrel(nk[3], nq[3])
+            ms = _time_ms(lambda: mvc.mph_nr_cuda(*a), 3)
+            pms = _time_ms(lambda: mvc.mph_nr_plain(*a), 1)
+            S2, c_ = R.shape[0], X0_.shape[0] + R.shape[1]
+            check(name, l_rel <= 1e-10 and h_rel <= 1e-8,
+                  {"logl_max_rel_err": l_rel, "Hvar_max_rel_err": h_rel,
+                   "block": form or "snp", "S": S2, "ms": ms,
+                   "plain_ms": pms})
+            # at least one likelihood and one derivative evaluation a lane
+            flops = sum(_mv_sums(2, c_, k)[1]
+                        for k in ("core", "core", "nr_a", "nr_b"))
+            record(name, max(l_rel, h_rel), ms, pms,
+                   isz * (R.numel() + X0_.numel() + Y.numel() + n_)
+                   + 8 * S2 * (4 * 4 + 1 + 36), S2 * n_ * flops,
+                   peak=PEAK_F64_PER_S, launches=cnt_x if form else cnt,
+                   form=form)
 
 
 def main():
@@ -569,6 +933,9 @@ def main():
             chk[tag]["lanes"] = len(rs_t)
         _say({"phase": "check_slice3", **chk,
               "cpu_f64_seconds": time.time() - t0})
+
+        # (f) the multivariate LMM at the releases.org protocol shape
+        counts_f, mv_ops = _drive_mvlmm(kernels, paths, td, f64, dev)
 
         # 4. kernels against their plain versions, main-path shapes
         from gemma_torch.config import GemmaConfig
@@ -960,6 +1327,8 @@ def main():
                    2 * 3 * S_ * n, peak=PEAK_F64_PER_S,
                    launches=counts_e["lm"],
                    form="gene" if gene else None)
+    _hold_mvlmm(mv_ops, counts_f, record, check, amax, dev)
+
     for entry in results:
         if entry["name"] in per_lane:
             entry["per_lane"] = per_lane[entry["name"]]

@@ -5,7 +5,9 @@ eigendecomposition (eval, U), the rotated covariates and phenotype
 (UtW, Uty), the null-model fit and the per-block batch data.
 `state_from_numpy` turns those — as numpy arrays, from whatever
 produced them — into device tensors in the port's layout, so two
-implementations can be fed identical eigenfactors and null fits.
+implementations can be fed identical eigenfactors and null fits;
+`mvlmm_state_from_numpy` does the same for the multivariate LMM's
+rotated operands and null (Vg, Ve, B).
 cuSOLVER's and LAPACK's eigenvectors differ in sign and inside
 degenerate eigenspaces; comparing the association downstream of shared
 factors takes that out of the comparison.
@@ -55,3 +57,35 @@ def state_from_numpy(eval_, UtW, Uty, *, n_cvt: int, U=None, null=None,
         data = build_batch_data(ev, utw, uty, t(Utx), n_cvt)
     return CarriedState(eval=ev, U=None if U is None else t(U), UtW=utw,
                         Uty=uty, null=nf, data=data)
+
+
+class MvlmmState(NamedTuple):
+    eval: torch.Tensor            # (n,)
+    X0: torch.Tensor              # (c0, n) shared rotated covariates
+    Y: torch.Tensor               # (d, n) rotated phenotypes
+    R: torch.Tensor | None        # (S, r, n) the lanes' own rotated rows
+    Vg: torch.Tensor              # (1 or S, d, d) float64
+    Ve: torch.Tensor
+    B: torch.Tensor | None        # (1 or S, d, c) float64
+
+
+def mvlmm_state_from_numpy(eval_, X0, Y, *, Vg, Ve, B=None, R=None,
+                           device: str | torch.device = "cpu",
+                           dtype: torch.dtype = torch.float64) -> MvlmmState:
+    """An mvLMM run's intermediates — the rotated operands in the
+    reference's layout (X0 (c0, n), Y (d, n), per-lane rows (S, r, n))
+    and a null fit's (Vg, Ve, B), shared (d, d) or per lane — as the
+    tensors mvlmm_core's kernels take: operands in `dtype`, the starting
+    values float64 with a leading lane axis."""
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(a)),
+                               dtype=dt, device=device)
+
+    def lanes(a):
+        a = t(a, torch.float64)
+        return a[None] if a.ndim == 2 else a
+
+    return MvlmmState(eval=t(eval_), X0=t(X0), Y=t(Y),
+                      R=None if R is None else t(R), Vg=lanes(Vg),
+                      Ve=lanes(Ve), B=None if B is None else lanes(B))

@@ -117,6 +117,13 @@ class Kernel:
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err
 
+    def host_fn(self, name: str, argtypes: tuple, restype):
+        """A plain C host function of the kernel's library."""
+        fn = getattr(ctypes.CDLL(self.build()), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
+
     def launch(self, device: torch.device, *args) -> None:
         """Launch on `device`'s current stream; raise on a refused launch."""
         if self._fn is None:
@@ -181,9 +188,39 @@ LM_TAIL = Kernel("lm_tail", _LM_ARGS, _LM_REPLACES)
 LM_TAIL_F64 = Kernel("lm_tail_f64", _LM_ARGS, _LM_REPLACES,
                      source="lm_tail")
 
+# the mvLMM kernels K9-K11: the lane operands eval, X0 (c0, n), Y (d, n)
+# and R (S, r, n) in the operand type, starting values in float64 at a
+# lane stride (0 = shared), outputs float64
+_EM_ARGS = (_I, _I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+            _P, _I, _P, _P, _P, _P, _P, _P)
+_EM_REPLACES = "gemma_tpu/models/mvlmm_core.py:225 mph_em"
+MPH_EM = Kernel("mph_em", _EM_ARGS, _EM_REPLACES)
+MPH_EM_F64 = Kernel("mph_em_f64", _EM_ARGS, _EM_REPLACES, source="mph_em")
+_P_ARGS = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+           _P, _P, _P, _P)
+_P_REPLACES = ("gemma_tpu/models/mvlmm_core.py:712 mph_calc_p + "
+               "gemma_tpu/ops/stats.py:46 chisq_sf")
+MPH_CALC_P = Kernel("mph_calc_p", _P_ARGS, _P_REPLACES)
+MPH_CALC_P_F64 = Kernel("mph_calc_p_f64", _P_ARGS, _P_REPLACES,
+                        source="mph_calc_p")
+_NR_ARGS = (_I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+            _P, _P, _P, _P)
+_NR_REPLACES = ("gemma_tpu/models/mvlmm_core.py:439 mph_nr (with "
+                "_nr_logl_fn :393, _is_pd :423)")
+MPH_NR = Kernel("mph_nr", _NR_ARGS, _NR_REPLACES)
+MPH_NR_F64 = Kernel("mph_nr_f64", _NR_ARGS, _NR_REPLACES, source="mph_nr")
+# largest phenotype count and design rows (covariates plus the lane's own
+# rows) K9-K11 take (MV_MAX_D, MV_MAX_C in csrc/mvlmm_lane.cuh)
+MAX_PH = 8
+MAX_MV_ROWS = 10
+# device scratch K11's wrapper allocates at most at once (its lanes go in
+# several launches beyond it)
+NR_SCRATCH_BYTES = 256 << 20
+
 ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL, SCORE_TAIL,
        LRT_TAIL, LAMBDA_SOLVE_F64, GENO_PROLOGUE_F64, WALD_TAIL_F64,
-       SCORE_TAIL_F64, LM_TAIL, LM_TAIL_F64)
+       SCORE_TAIL_F64, LM_TAIL, LM_TAIL_F64, MPH_EM, MPH_EM_F64, MPH_CALC_P,
+       MPH_CALC_P_F64, MPH_NR, MPH_NR_F64)
 
 
 def variant(k32: Kernel, k64: Kernel, dtype: torch.dtype) -> Kernel:
@@ -222,6 +259,21 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def check_mvlmm_shape(d: int, c: int) -> None:
+    if not 2 <= d <= MAX_PH or not 1 <= c <= MAX_MV_ROWS:
+        raise ValueError(
+            f"the mvLMM kernels take 2..{MAX_PH} phenotypes and 1.."
+            f"{MAX_MV_ROWS} design rows (covariates plus the lane's own "
+            f"rows), got {d} and {c} (MV_MAX_D, MV_MAX_C in gemma_torch/"
+            "csrc/mvlmm_lane.cuh; ROADMAP.md records the bound)")
+
+
+def mph_nr_scratch(kern: Kernel, d: int, c: int) -> int:
+    """float64 values of K11's scratch per lane, from its library."""
+    fn = kern.host_fn("mph_nr_scratch", (_I, _I), ctypes.c_long)
+    return int(fn(d, c))
 
 
 def check_n_cvt(n_cvt: int) -> None:

@@ -2,7 +2,8 @@
 
 The port runs `-gk 1|2` (kinship), `-eigen`, the univariate LMM
 `-lmm 1/2/3/4/5/9` from `-k` or `-u/-d` (with `-widv` residual weights,
-`-gxe`, `-gene`, LOCO and `-ksnps`/`-gwasnps`) and the linear model
+`-gxe`, `-gene`, LOCO and `-ksnps`/`-gwasnps`), the multivariate LMM
+(`-lmm 1/2/3/4/9` with several `-n`, with `-gxe`) and the linear model
 `-lm 1/2/3/4` (with `-gene`), on one device, in float32 (speed mode) or
 float64 (parity mode).  Each
 `run_*` wires the dataset through the device code and writes
@@ -27,11 +28,13 @@ from gemma_torch.io.readers import (read_eigen_d, read_eigen_u,
                                     read_gene_expression, read_kinship)
 from gemma_torch.io.writers import (
     write_matrix, write_vector, write_lmm_assoc, write_lmm_gene_assoc,
-    write_lm_assoc, write_lm_gene_assoc, snp_rows_from_table, ensure_outdir,
+    write_lm_assoc, write_lm_gene_assoc, write_mvlmm_assoc,
+    snp_rows_from_table, ensure_outdir,
 )
 from gemma_torch.models.lm import lm_block, lm_gene_block
 from gemma_torch.models.lmm.engine import (
     assoc_block_impl, assoc_gene_block_impl, assoc_gxe_block_impl, fit_null)
+from gemma_torch.models.mvlmm import MvlmmNull, mvlmm_assoc, mvlmm_assoc_gxe
 from gemma_torch.ops.center import center_matrix
 from gemma_torch.ops.eigh import eigh_zeroed, zero_eigenvalues
 from gemma_torch.ops.kinship import KinshipAccumulator
@@ -312,8 +315,7 @@ def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
     if cfg.a_mode not in (1, 2, 3, 4, 5, 9):
         raise ValueError(f"run_lmm runs -lmm 1-5 and 9, not {cfg.a_mode}")
     if cfg.n_ph != 1:
-        raise _not_ported("more than one -n phenotype (mvLMM)",
-                          "queue A, \"mvLMM\"")
+        raise ValueError("run_lmm is single-phenotype; use run_mvlmm")
     with log.timer.phase("load"):
         ds = load_dataset(cfg)
 
@@ -445,6 +447,90 @@ def _lmm_gene(cfg: GemmaConfig, log: RunLog, ds: Dataset, eval_, U, UtW,
 
 
 # ---------------------------------------------------------------------------
+# -lmm with several -n: multivariate LMM
+
+def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
+              device: str | torch.device = "cuda") -> dict:
+    """Multivariate LMM association (-lmm 1/2/3/4/9 with more than one
+    -n), with -gxe the SNP-by-environment test (MVLMM::AnalyzeBimbam and
+    AnalyzeBimbamGXE, mvlmm.cpp:2972-4416).  -lmm 9 runs no test and
+    writes the zero columns GEMMA writes."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    if cfg.crt:
+        raise _not_ported("-crt", "queue A, \"mvLMM -crt\"")
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    d = cfg.n_ph
+    eval_, U, _ = _load_or_compute_eigen(cfg, ds, log, dtype, device)
+    W = torch.as_tensor(ds.W, dtype=dtype, device=device)
+    Ymat = torch.as_tensor(ds.Y, dtype=dtype, device=device)
+    with log.timer.phase("utx"):
+        X0 = (U.T @ W).T.contiguous()                 # (c, n)
+        Y = (U.T @ Ymat).T.contiguous()               # (d, n)
+        if ds.gxe is not None:
+            # the GxE null covariates are [W, env] (mvlmm.cpp:4049-4052)
+            env = torch.as_tensor(ds.gxe, dtype=dtype, device=device)
+            X0 = torch.cat([X0, (U.T @ env)[None]]).contiguous()
+    rows = X0.shape[0] + (2 if ds.gxe is not None else 1)
+    if device.type == "cuda":
+        kernels.check_mvlmm_shape(d, rows)
+
+    with log.timer.phase("null"):
+        null = MvlmmNull(eval_, X0, Y, cfg)
+    log.null_model = dict(logl_remle_H0=null.logl_remle_H0,
+                          logl_mle_H0=null.logl_mle_H0)
+    vg, ve = (t.cpu().numpy() for t in (null.Vg_remle, null.Ve_remle))
+    for name, m in (("Vg", vg), ("Ve", ve)):
+        log.extra.append(f"REMLE estimate for {name} in the null model: "
+                         + " ".join(f"{m[i, j]:.6g}" for i in range(d)
+                                    for j in range(i + 1)))
+    for name, v in (("Vg", null.VVg_remle), ("Ve", null.VVe_remle)):
+        log.extra.append(f"se({name}): " + " ".join(
+            f"{s:.6g}" for s in np.sqrt(np.maximum(v, 0.0))))
+
+    idx = _assoc_snp_indices(ds)
+    n = ds.ni_test
+    bs = _block_size(cfg, device, len(idx), n_axis=n, per_lane=rows)
+    outs = dict(p_wald=[], p_lrt=[], p_score=[], beta=[], Vbeta=[],
+                em_iters=[])
+    with log.timer.phase("opt"):
+        for s in range(0, len(idx), bs):
+            sel = idx[s:s + bs]
+            k = len(sel)
+            raw = _raw_wire_block(ds, sel, bs, dtype, all_individuals=False)
+            x = prologue(_to_device(raw, device), n, IMPUTE, dtype=dtype)[:k]
+            if ds.gxe is None:
+                res = mvlmm_assoc(eval_, X0, Y, (x @ U).contiguous(), null,
+                                  cfg.a_mode, cfg, dtype)
+            else:
+                # minor-allele coding where the imputed mean exceeds 1,
+                # and beta's sign restored (mvlmm.cpp:4254-4258)
+                flip = x.sum(dim=1, dtype=torch.float64) / n > 1.0
+                x = torch.where(flip[:, None], 2.0 - x, x)
+                res = mvlmm_assoc_gxe(eval_, X0, Y, (x @ U).contiguous(),
+                                      ((x * env) @ U).contiguous(), null,
+                                      cfg.a_mode, cfg, dtype)
+                res["beta"] *= np.where(flip.cpu().numpy(), -1.0,
+                                        1.0)[:, None]
+            for name in outs:
+                outs[name].append(res[name])
+        outs = {k: np.concatenate(v) if v else np.zeros((0,))
+                for k, v in outs.items()}
+
+    ensure_outdir(cfg.path_out)
+    with log.timer.phase("write"):
+        write_mvlmm_assoc(f"{cfg.out_prefix()}.assoc.txt", cfg.a_mode, d,
+                          snp_rows_from_table(ds.geno.snps, ds.qc, idx),
+                          outs["beta"], outs["Vbeta"], outs["p_wald"],
+                          outs["p_lrt"], outs["p_score"])
+    _summary(log, ds, cfg, ds.n_cvt, len(idx))
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode, n_ph=d)
+    return dict(stats=outs, null=null, snp_indices=idx, dataset=ds)
+
+
+# ---------------------------------------------------------------------------
 # -lm: linear model
 
 _LM_NAMES = ("beta", "se", "p_wald", "p_lrt", "p_score")
@@ -510,8 +596,9 @@ def run_lm(cfg: GemmaConfig, log: RunLog | None = None,
 # ---------------------------------------------------------------------------
 
 def batch_run(cfg: GemmaConfig, argv: list | None = None,
-              device: str | None = None) -> None:
-    """Mode dispatch (GEMMA::BatchRun, gemma.cpp:1641).
+              device: str | None = None):
+    """Mode dispatch (GEMMA::BatchRun, gemma.cpp:1641); returns what the
+    mode's run_* returns.
 
     `device` overrides cfg.device ("cuda" unless -device says otherwise)."""
     dev = resolve_device(device if device is not None else cfg.device)
@@ -521,13 +608,15 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
     precision.apply_matmul_precision()
     log = RunLog(argv=argv or ["gemma_torch"], quiet=cfg.quiet, device=dev)
     if cfg.a_mode in (21, 22):
-        run_gk(cfg, log, dev)
-    elif cfg.a_mode == 31:
-        run_eigen(cfg, log, dev)
-    elif cfg.a_mode in (1, 2, 3, 4, 5, 9):
-        run_lmm(cfg, log, dev)
-    elif cfg.a_mode in (51, 52, 53, 54):
-        run_lm(cfg, log, dev)
+        return run_gk(cfg, log, dev)
+    if cfg.a_mode == 31:
+        return run_eigen(cfg, log, dev)
+    if cfg.a_mode in (1, 2, 3, 4, 5, 9):
+        if cfg.n_ph == 1:
+            return run_lmm(cfg, log, dev)
+        return run_mvlmm(cfg, log, dev)
+    if cfg.a_mode in (51, 52, 53, 54):
+        return run_lm(cfg, log, dev)
     else:
         for modes, entry in _NOT_PORTED.items():
             if cfg.a_mode in modes:

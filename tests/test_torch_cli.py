@@ -162,7 +162,7 @@ def test_lmm1_float32_port_within_contract(bimbam):
 
 
 @pytest.mark.parametrize("flags,entry", [
-    ("-n 1 2 -lmm 1", "mvLMM"),
+    ("-n 1 2 -lmm 1 -crt", "mvLMM -crt"),
     ("-vc 1", "variance components and summary statistics"),
     ("-bslmm 1", "BSLMM and prediction"),
     ("-predict 1", "BSLMM and prediction"),

@@ -102,3 +102,39 @@ def test_lmm_wrappers_send_cpu_tensors_to_plain_versions(dtype):
         assert bool(((p >= 0) & (p <= 1)).all())
     assert lk.score_pvalues(nf.l_mle, lk.build_batch_data(
         ev, UtW, Uty, Utx, 1), 1)[2].dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mvlmm_wrappers_send_cpu_tensors_to_plain_versions(dtype):
+    """K9-K11's wrappers and the mvLMM driver on CPU tensors, float32 and
+    float64: plain versions only, no kernel built or launched."""
+    import types
+    import numpy as np
+    from gemma_torch import kernels
+    from gemma_torch.models import mvlmm_core as core
+    from gemma_torch.models.mvlmm import MvlmmNull, mvlmm_assoc
+    rng = np.random.default_rng(1)
+    n, S, d = 40, 3, 2
+    ev = torch.as_tensor(np.sort(rng.uniform(0, 2, n)), dtype=dtype)
+    X0 = torch.ones((1, n), dtype=dtype)
+    Y = torch.as_tensor(rng.normal(size=(d, n)), dtype=dtype)
+    Utx = torch.as_tensor(rng.normal(size=(S, n)), dtype=dtype)
+    cfg = types.SimpleNamespace(l_min=1e-5, l_max=1e5, n_region=10,
+                                em_iter=200, em_prec=1e-4, nr_iter=20,
+                                nr_prec=1e-4, p_nr=0.5)
+    kernels.reset_launches()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # small-tensor loops (test_torch_mvlmm.py)
+    try:
+        null = MvlmmNull(ev, X0, Y, cfg)
+        out = mvlmm_assoc(ev, X0, Y, Utx, null, 4, cfg, dtype)
+        em = core.mph_em(True, 5, 1e-3, ev, X0, Y, Utx[:, None],
+                         null.Vg_start[None], null.Ve_start[None],
+                         null.B_start[None])
+    finally:
+        torch.set_num_threads(threads)
+    assert all(k.launches == 0 for k in kernels.ALL)
+    assert em.Vg.dtype == torch.float64 and em.iters.shape == (S,)
+    for f in ("p_wald", "p_lrt", "p_score"):
+        assert out[f].shape == (S,)
+        assert ((out[f] >= 0) & (out[f] <= 1)).all()
