@@ -46,10 +46,11 @@
    the same inputs, at the main path's shapes (n = 1940, S = the run's
    block, c = 1, and c = 3 for K2-K7; the per-lane forms of K2-K7 at the
    GxE shapes, c = 1 plus env and x, and at the gene shapes, 2,048
-   genes; K8 on SNP rows and gene rows; K9-K11 on 2,048 lanes of the
-   mvLMM protocol block and at its GxE shapes), with the tolerances below, and
-   times both (CUDA events, median after warm-up, L2 flushed between
-   runs).
+   genes; K8 on SNP rows and gene rows; K9-K11 on the whole mvLMM
+   protocol block, its GxE form and the five-trait block, the last at
+   the float64 tolerances), with the tolerances below, and times both
+   (CUDA events, median after warm-up, L2 flushed between runs; the
+   plain mvLMM loops once, on the call compared).
 5. Prints the card's name and power limit, the kernels line and, last,
    {"ok": true, "device": {...}}; the whole report is also written to
    build/chip_smoke.out.
@@ -151,7 +152,6 @@ CHECK_SNPS = 1024
 P_COLS = ("p_wald", "p_lrt", "p_score")
 # phase (f): the releases.org mvLMM protocol shape (bench.py:78)
 MV_N, MV_P, MV_TRAITS, MV_CAUSAL, MV_CHECK = 757, 10775, 5, 8, 256
-MV_LANES = 2048          # lanes of the protocol block the kernels are held on
 RESULTS = {}             # -o tag → what batch_run returned
 
 
@@ -274,18 +274,21 @@ def _synth_mv(td, n=MV_N, p=MV_P, seed=4):
     return geno, pheno, causal
 
 
-def _mv_close(got, ref, tol, min_finite, match=None):
-    """|Δp| of a card result against the CPU's on the CPU's SNPs.  With
-    `match` (float64): within `tol` on lanes whose K9 iteration count in
-    the column's fit equals the CPU's (p_score has no fit), >= `match` of
-    lanes agreeing in count, and every lane within 1e-3."""
+def _mv_close(got, ref, tol, min_finite, cols, match=None):
+    """|Δp| of a card result against the CPU's on the CPU's SNPs, for the
+    p columns `cols` the card's mode writes.  With `match` (float64):
+    within `tol` on lanes whose K9 iteration count in the column's fit
+    equals the CPU's (p_score has no fit), >= `match` of lanes agreeing in
+    count, and every lane within 1e-3."""
     pos = {s: i for i, s in enumerate(got["snp_indices"])}
     rows = np.array([pos[s] for s in ref["snp_indices"]])
     out = {}
     for col, fit in (("p_wald", 1), ("p_lrt", 0), ("p_score", None)):
-        g, r = got["stats"][col][rows], ref["stats"][col]
-        if not np.any(r) or not np.any(g):
+        if col not in cols:
             continue
+        g, r = got["stats"][col][rows], ref["stats"][col]
+        if not np.any(r):
+            raise RuntimeError(f"mvLMM {col}: the float64 CPU run wrote none")
         both = np.isfinite(g) & np.isfinite(r)
         err = np.abs(g - r)
         same = np.ones(len(r), bool)
@@ -307,38 +310,37 @@ def _mv_close(got, ref, tol, min_finite, match=None):
     return out
 
 
-def _mv_operands(argv, dev):
-    """The rotated operands of the mvLMM paths on the card, float32 and
-    float64: eval, X0 (intercept), X0e (with env), Y (2 traits), the
-    first MV_LANES SNPs' rows [x] (R1) and [x, x∘env] (R2), and the null
-    fits of both designs."""
+def _mv_operands(argv, idx, dev, dtypes):
+    """The rotated operands of an mvLMM path on the card, per dtype: eval,
+    X0 (intercept), Y (the traits), the rows [x] (R1) of the SNPs `idx`
+    and the null fit; with -gxe also X0e (with env), the rows [x, x∘env]
+    (R2) and the null fit of that design."""
     import torch
     from gemma_torch.cli import parse_args
     from gemma_torch.dataset import load_dataset
     from gemma_torch.models.mvlmm import MvlmmNull
     from gemma_torch.ops.pack2 import IMPUTE, prologue
-    from gemma_torch.run import (_assoc_snp_indices, _load_or_compute_eigen,
-                                 _raw_wire_block, _to_device)
+    from gemma_torch.run import (_load_or_compute_eigen, _raw_wire_block,
+                                 _to_device)
     from gemma_torch.utils.log import RunLog
     cfg = parse_args(argv)
     ds = load_dataset(cfg)
-    idx = _assoc_snp_indices(ds)[:MV_LANES]
     out = {}
-    for dt in (torch.float32, torch.float64):
+    for dt in dtypes:
         ev, U, _ = _load_or_compute_eigen(cfg, ds, RunLog(argv=[]), dt, dev)
         X0 = (U.T @ torch.as_tensor(ds.W, dtype=dt, device=dev)).T
         Y = (U.T @ torch.as_tensor(ds.Y, dtype=dt, device=dev)).T
-        env = torch.as_tensor(ds.gxe, dtype=dt, device=dev)
-        X0e = torch.cat([X0, (U.T @ env)[None]]).contiguous()
         raw = _raw_wire_block(ds, idx, len(idx), dt, all_individuals=False)
         x = prologue(_to_device(raw, dev), ds.ni_test, IMPUTE, dtype=dt)
-        Utx, Utxe = x @ U, (x * env) @ U
+        Utx = x @ U
         X0, Y = X0.contiguous(), Y.contiguous()
-        out[dt] = dict(ev=ev, X0=X0, Y=Y, X0e=X0e,
-                       R1=Utx[:, None].contiguous(),
-                       R2=torch.stack([Utx, Utxe], 1).contiguous(),
-                       null=MvlmmNull(ev, X0, Y, cfg),
-                       null_x=MvlmmNull(ev, X0e, Y, cfg))
+        o = out[dt] = dict(ev=ev, X0=X0, Y=Y, R1=Utx[:, None].contiguous(),
+                           null=MvlmmNull(ev, X0, Y, cfg))
+        if ds.gxe is not None:
+            env = torch.as_tensor(ds.gxe, dtype=dt, device=dev)
+            o["X0e"] = torch.cat([X0, (U.T @ env)[None]]).contiguous()
+            o["R2"] = torch.stack([Utx, (x * env) @ U], 1).contiguous()
+            o["null_x"] = MvlmmNull(ev, o["X0e"], Y, cfg)
     return out
 
 
@@ -547,8 +549,9 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
             ("M1", "MC", 1e-3, None), ("M4", "MC", 1e-3, None),
             ("M4d", "MC", 1e-6, 0.99), ("MX4", "MXC", 1e-3, None),
             ("MX4d", "MXC", 1e-6, 0.99)):
+        cols = ("p_wald",) if tag == "M1" else P_COLS
         chk_f[tag] = _mv_close(RESULTS[tag], RESULTS[ref_tag], tol, 0.97,
-                               match=match)
+                               cols, match=match)
     p5 = RESULTS["M5"]["stats"]["p_wald"]
     fin5 = float(np.isfinite(p5).mean())
     if fin5 < 0.97 or not ((p5[np.isfinite(p5)] >= 0)
@@ -557,145 +560,172 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
     chk_f["d5_p_wald_finite"] = fin5
     chk_f["phase_f_seconds"] = time.time() - t_f
     _say({"phase": "check_mvlmm", **chk_f})
-    # the kernels' operands: the protocol block's first MV_LANES SNPs
-    return counts_f, _mv_operands(mvk + n12 + mvx + ["-lmm", "1"], dev)
+    # the kernels' operands: the protocol block and the -n 1 2 3 4 5 block
+    import torch
+    ops = _mv_operands(mvk + n12 + mvx + ["-lmm", "1"],
+                       RESULTS["M1"]["snp_indices"], dev,
+                       (torch.float32, torch.float64))
+    ops["d5"] = _mv_operands(
+        mvk + f"-snps {td}/mv_1024.snps -n 1 2 3 4 5 -lmm 1".split(),
+        RESULTS["M5"]["snp_indices"], dev, (torch.float32,))[torch.float32]
+    return counts_f, ops
 
 
-def _hold_mvlmm(mv_ops, counts_f, record, check, amax, dev):
-    """K9-K11 against their plain versions on the card, on the protocol
-    block's first MV_LANES lanes (n = 757, d = 2, design 1 + x) and at the
-    GxE shapes (1 + env + x + x∘env), float32 and float64 operands; the
-    float32 rows report the -lmm 1 protocol path's launches, the float64
-    rows the parity -lmm 4 path's, their GxE forms the -gxe paths'."""
+def _timed(fn):
+    """(fn(), ms) of one call (CUDA events, L2 flushed before it): the
+    plain mvLMM loops, seconds long at a whole block, are timed on the
+    call that is compared."""
+    import torch
+    torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                device="cuda").zero_()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _hold_mv_block(blk, record, check, amax):
+    """K9, K10 and K11 against their plain versions on one block, as its
+    path runs them: K9 with a fixed cap of 50 iterations and prec = 0
+    (REML and ML), then converged in the path's REML form; K10 at the
+    converged (Vg, Ve); K11 from there (the -pnr refinement's form).
+    `blk`: the operands, the starts, the form's name, its launches, the
+    kernel names' suffix, the converged fit's cap and staging, and `tight`
+    for the float64 tolerances."""
     import torch
     from gemma_torch.models import mvlmm_core as mvc
-    f32, f64 = torch.float32, torch.float64
+    ev, X0, Y, R = blk["ev"], blk["X0"], blk["Y"], blk["R"]
+    V, E, B = blk["Vg"], blk["Ve"], blk["B"]
+    sfx, form, cnt, tight = blk["sfx"], blk["form"], blk["launches"], \
+        blk["tight"]
+    S, n, d = R.shape[0], ev.shape[0], Y.shape[0]
+    c = X0.shape[0] + R.shape[1]
+    p2 = d * (d + 1)
+    isz = torch.finfo(ev.dtype).bits // 8
+    in_bytes = isz * (n + X0.numel() + Y.numel() + R.numel())
+    tol = {k: TOL[k + "_f64"] for k in ("mph_em", "mph_calc_p", "mph_nr")} \
+        if tight and not sfx else {}
+    base = {"block": form or "snp", "S": S, "n": n, "d": d, "c": c}
 
     def mrel(a, b):
         ok = torch.isfinite(a) & torch.isfinite(b)
         return float((a[ok] - b[ok]).abs().max() / b[ok].abs().max())
 
+    def rec(name, err, ms, pms, nbytes, nops):
+        record(name + sfx, err, ms, pms, nbytes, nops, peak=PEAK_F64_PER_S,
+               launches=cnt, form=form, tol=tol.get(name))
+
+    def chk(name, ok, line):
+        if name in tol:
+            line = {"tolerance": tol[name], **line}
+        check(name + sfx, ok, {**base, **line})
+
+    # K9
+    cap_err = 0.0
+    for reml in (True, False):
+        a = (reml, 50, 0.0, ev, X0, Y, R, V, E, B)
+        kk, pp = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
+        cap_err = max(cap_err, mrel(kk.Vg, pp.Vg), mrel(kk.Ve, pp.Ve),
+                      mrel(kk.logl, pp.logl))
+    a = (True, blk["cap"], 1e-3, ev, X0, Y, R, V, E, B, blk["staged"])
+    kk = mvc.mph_em_cuda(*a)
+    pp, pms = _timed(lambda: mvc.mph_em_plain(*a))
+    same = kk.iters == pp.iters
+    dp = (mvc.mph_calc_p_plain(ev, X0, Y, R, kk.Vg, kk.Ve).p
+          - mvc.mph_calc_p_plain(ev, X0, Y, R, pp.Vg, pp.Ve).p
+          ).abs().nan_to_num(0.0)
+    err = float(dp[same].max()) if bool(same.any()) else 0.0
+    same_share = float(same.double().mean())
+    if tight:
+        ok = (cap_err <= 1e-10 and err <= 1e-6 and same_share >= 0.99
+              and float(dp.max()) <= 1e-3)
+    else:
+        ok = cap_err <= 1e-6 and float(dp.max()) <= 1e-3
+    ms = _time_ms(lambda: mvc.mph_em_cuda(*a), 3)
+    its = float((kk.iters.double() + 1).sum())
+    chk("mph_em", ok, {"capped_max_rel_err": cap_err, "p_max_abs_err": err,
+                       "p_max_abs_err_all": float(dp.max()),
+                       "same_iters": same_share, "mean_iters": its / S,
+                       "ms": ms, "plain_ms": pms})
+    flops = sum(_mv_sums(d, c, k)[1] for k in ("core", "em_a_reml",
+                                               "em_b_reml"))
+    rec("mph_em", max(err, cap_err), ms, pms,
+        in_bytes + 8 * S * (2 * d * d + d * c + 2), its * n * flops)
+    # K10 at the converged (Vg, Ve)
+    a = (ev, X0, Y, R, kk.Vg, kk.Ve)
+    ck, cq = mvc.mph_calc_p_cuda(*a), mvc.mph_calc_p_plain(*a)
+    se = torch.sqrt(torch.diagonal(cq.Vbeta, dim1=-2, dim2=-1))
+    err = amax(ck.p, cq.p)
+    beta_se = float(((ck.beta - cq.beta).abs() / se).max())
+    ms = _time_ms(lambda: mvc.mph_calc_p_cuda(*a), 10)
+    pms = _time_ms(lambda: mvc.mph_calc_p_plain(*a), 3)
+    chk("mph_calc_p", err <= (1e-10 if tight else 1e-5)
+        and beta_se <= (1e-8 if tight else 1e-3),
+        {"max_abs_err": err, "beta_max_err_over_se": beta_se, "ms": ms,
+         "plain_ms": pms})
+    rec("mph_calc_p", err, ms, pms,
+        in_bytes + 8 * S * (2 * d * d + 2 + d + d * d),
+        S * n * _mv_sums(d, c, "p")[1])
+    # K11 from the converged EM
+    a = (True, 10, 1e-3, ev, X0, Y, R, kk.Vg, kk.Ve)
+    nk = mvc.mph_nr_cuda(*a)
+    nq, pms = _timed(lambda: mvc.mph_nr_plain(*a))
+    l_rel, h_rel = mrel(nk[2], nq[2]), mrel(nk[3], nq[3])
+    ms = _time_ms(lambda: mvc.mph_nr_cuda(*a), 3)
+    chk("mph_nr", l_rel <= 1e-10 and h_rel <= 1e-8,
+        {"logl_max_rel_err": l_rel, "Hvar_max_rel_err": h_rel, "ms": ms,
+         "plain_ms": pms})
+    # at least one likelihood and one derivative evaluation a lane
+    flops = sum(_mv_sums(d, c, k)[1] for k in ("core", "core", "nr_a",
+                                               "nr_b"))
+    rec("mph_nr", max(l_rel, h_rel), ms, pms,
+        in_bytes + 8 * S * (4 * d * d + 1 + p2 * p2), S * n * flops)
+
+
+def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
+    """K9-K11 against their plain versions on the card, at the blocks the
+    mvLMM paths give them: the whole protocol block (n = 757, d = 2,
+    design 1 + x) and its GxE form (1 + env + x + x∘env), float32 and
+    float64 operands, and the -n 1 2 3 4 5 path's 1,024 SNPs (d = 5, 1 +
+    x, float32, held at the float64 tolerances: the kernels compute in
+    float64, and only there do they run the d >= 3 Jacobi and the ML
+    sign carry-over).  Each row reports the launches of the path that runs
+    its form: -lmm 1 (float32 protocol), the parity -lmm 4 (float64), the
+    -gxe paths and -n 1 2 3 4 5."""
+    import torch
+    from gemma_torch.models import mvlmm_core as mvc
+    f32, f64 = torch.float32, torch.float64
+    blocks = []
     for dt, sfx, cnt, cnt_x in (
             (f32, "", counts_f["lmm1"], counts_f["gxe"]),
             (f64, "_f64", counts_f["lmm4_f64"], counts_f["gxe_f64"])):
         o = mv_ops[dt]
-        ev, X0, X0e, Y, R1, R2 = (o[k] for k in ("ev", "X0", "X0e", "Y", "R1",
-                                                 "R2"))
-        S_, n_ = R1.shape[0], ev.shape[0]
-        R2 = R2[:S_ // 2].contiguous()
-        isz = torch.finfo(dt).bits // 8
-        Vs, Es = o["null"].Vg_start[None], o["null"].Ve_start[None]
-        B0 = o["null"].B_start[None]
-        Vx, Ex = o["null_x"].Vg_start[None], o["null_x"].Ve_start[None]
-        Bx = torch.cat([o["null_x"].B_start,
-                        torch.zeros((2, 1), dtype=f64, device=dev)], 1)[None]
-        # K9: a fixed cap of 50 iterations with prec = 0, REML and ML, at
-        # both shapes; then converged as the -lmm 1 path runs it
-        name = "mph_em" + sfx
-        cap_err = 0.0
-        for X0_, R, V, E, B in ((X0, R1, Vs, Es, B0), (X0e, R2, Vx, Ex, Bx)):
-            for reml in (True, False):
-                a = (reml, 50, 0.0, ev, X0_, Y, R, V, E, B)
-                kk, pp = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
-                cap_err = max(cap_err, mrel(kk.Vg, pp.Vg), mrel(kk.Ve, pp.Ve),
-                              mrel(kk.logl, pp.logl))
-        cap = 1000 if dt == f64 else mvc.nr_switch_point(1000)
-        a = (True, cap, 1e-3, ev, X0, Y, R1, Vs, Es, B0, True)
-        kk, pp = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
-        pk = mvc.mph_calc_p_plain(ev, X0, Y, R1, kk.Vg, kk.Ve).p
-        pq = mvc.mph_calc_p_plain(ev, X0, Y, R1, pp.Vg, pp.Ve).p
-        same = kk.iters == pp.iters
-        dp = (pk - pq).abs().nan_to_num(0.0)
-        err = float(dp[same].max())
-        ok = cap_err <= (1e-10 if dt == f64 else 1e-6)
-        ok = ok and (err <= 1e-6 and float(same.double().mean()) >= 0.99
-                     and float(dp.max()) <= 1e-3 if dt == f64
-                     else float(dp.max()) <= 1e-3)
-        ms = _time_ms(lambda: mvc.mph_em_cuda(*a), 3)
-        pms = _time_ms(lambda: mvc.mph_em_plain(*a), 1)
-        its = float((kk.iters.double() + 1).sum())
-        check(name, ok, {"capped_max_rel_err": cap_err, "p_max_abs_err": err,
-                         "p_max_abs_err_all": float(dp.max()),
-                         "same_iters": float(same.double().mean()),
-                         "mean_iters": its / S_, "S": S_, "n": n_, "ms": ms,
-                         "plain_ms": pms})
-        flops = sum(_mv_sums(2, 2, k)[1]
-                    for k in ("core", "em_a_reml", "em_b_reml"))
-        record(name, max(err, cap_err), ms, pms,
-               isz * (n_ + X0.numel() + Y.numel() + R1.numel())
-               + 8 * S_ * (2 * 4 + 4 + 2), its * n_ * flops,
-               peak=PEAK_F64_PER_S, launches=cnt)
-        # the GxE H1 fit's form: REML from the null, to convergence
-        a = (True, 1000, 1e-3, ev, X0e, Y, R2, Vx, Ex, Bx)
-        kx, px = mvc.mph_em_cuda(*a), mvc.mph_em_plain(*a)
-        same = kx.iters == px.iters
-        dp = (mvc.mph_calc_p_plain(ev, X0e, Y, R2, kx.Vg, kx.Ve).p
-              - mvc.mph_calc_p_plain(ev, X0e, Y, R2, px.Vg, px.Ve).p
-              ).abs().nan_to_num(0.0)
-        err = float(dp[same].max()) if bool(same.any()) else 0.0
-        ok = (err <= 1e-6 and float(same.double().mean()) >= 0.99
-              and float(dp.max()) <= 1e-3 if dt == f64
-              else float(dp.max()) <= 1e-3)
-        ms = _time_ms(lambda: mvc.mph_em_cuda(*a), 3)
-        pms = _time_ms(lambda: mvc.mph_em_plain(*a), 1)
-        its = float((kx.iters.double() + 1).sum())
-        S2 = R2.shape[0]
-        check(name, ok, {"block": "gxe", "p_max_abs_err": err,
-                         "p_max_abs_err_all": float(dp.max()),
-                         "same_iters": float(same.double().mean()),
-                         "mean_iters": its / S2, "S": S2, "ms": ms,
-                         "plain_ms": pms})
-        flops = sum(_mv_sums(2, 4, k)[1]
-                    for k in ("core", "em_a_reml", "em_b_reml"))
-        record(name, err, ms, pms,
-               isz * (n_ + X0e.numel() + Y.numel() + R2.numel())
-               + 8 * S2 * (2 * 4 + 8 + 2), its * n_ * flops,
-               peak=PEAK_F64_PER_S, launches=cnt_x, form="gxe")
-        # K10 at the converged EM's (Vg, Ve), and at the GxE shapes
-        name = "mph_calc_p" + sfx
-        for form, X0_, R, V, E in ((None, X0, R1, kk.Vg, kk.Ve),
-                                   ("gxe", X0e, R2, Vx, Ex)):
-            a = (ev, X0_, Y, R, V, E)
-            ck, cq = mvc.mph_calc_p_cuda(*a), mvc.mph_calc_p_plain(*a)
-            se = torch.sqrt(torch.diagonal(cq.Vbeta, dim1=-2, dim2=-1))
-            err = amax(ck.p, cq.p)
-            beta_se = float(((ck.beta - cq.beta).abs() / se).max())
-            ms = _time_ms(lambda: mvc.mph_calc_p_cuda(*a), 10)
-            pms = _time_ms(lambda: mvc.mph_calc_p_plain(*a), 3)
-            S2, c_ = R.shape[0], X0_.shape[0] + R.shape[1]
-            check(name, err <= (1e-10 if dt == f64 else 1e-5)
-                  and beta_se <= (1e-8 if dt == f64 else 1e-3),
-                  {"max_abs_err": err, "beta_max_err_over_se": beta_se,
-                   "block": form or "snp", "S": S2, "ms": ms,
-                   "plain_ms": pms})
-            record(name, err, ms, pms,
-                   isz * (R.numel() + X0_.numel() + Y.numel() + n_)
-                   + 8 * S2 * (2 * 4 + 3 + 2 + 4),
-                   S2 * n_ * _mv_sums(2, c_, "p")[1], peak=PEAK_F64_PER_S,
-                   launches=cnt_x if form else cnt, form=form)
-        # K11 from the converged EM (REML, the refinement's form) and at
-        # the GxE shapes from the null
-        name = "mph_nr" + sfx
-        for form, X0_, R, V, E in ((None, X0, R1, kk.Vg, kk.Ve),
-                                   ("gxe", X0e, R2, Vx, Ex)):
-            a = (True, 10, 1e-3, ev, X0_, Y, R, V, E)
-            nk, nq = mvc.mph_nr_cuda(*a), mvc.mph_nr_plain(*a)
-            l_rel, h_rel = mrel(nk[2], nq[2]), mrel(nk[3], nq[3])
-            ms = _time_ms(lambda: mvc.mph_nr_cuda(*a), 3)
-            pms = _time_ms(lambda: mvc.mph_nr_plain(*a), 1)
-            S2, c_ = R.shape[0], X0_.shape[0] + R.shape[1]
-            check(name, l_rel <= 1e-10 and h_rel <= 1e-8,
-                  {"logl_max_rel_err": l_rel, "Hvar_max_rel_err": h_rel,
-                   "block": form or "snp", "S": S2, "ms": ms,
-                   "plain_ms": pms})
-            # at least one likelihood and one derivative evaluation a lane
-            flops = sum(_mv_sums(2, c_, k)[1]
-                        for k in ("core", "core", "nr_a", "nr_b"))
-            record(name, max(l_rel, h_rel), ms, pms,
-                   isz * (R.numel() + X0_.numel() + Y.numel() + n_)
-                   + 8 * S2 * (4 * 4 + 1 + 36), S2 * n_ * flops,
-                   peak=PEAK_F64_PER_S, launches=cnt_x if form else cnt,
-                   form=form)
+        nul, nx = o["null"], o["null_x"]
+        common = dict(ev=o["ev"], Y=o["Y"], sfx=sfx, tight=dt == f64)
+        # -lmm 1's REML fit: staged, and in float32 to the Newton switch
+        blocks.append(dict(
+            common, X0=o["X0"], R=o["R1"], Vg=nul.Vg_start[None],
+            Ve=nul.Ve_start[None], B=nul.B_start[None], form=None,
+            launches=cnt, staged=True,
+            cap=1000 if dt == f64 else mvc.nr_switch_point(1000)))
+        # the GxE H1 fit: REML from the null to convergence
+        blocks.append(dict(
+            common, X0=o["X0e"], R=o["R2"], Vg=nx.Vg_start[None],
+            Ve=nx.Ve_start[None], form="gxe", launches=cnt_x,
+            staged=False, cap=1000,
+            B=torch.cat([nx.B_start, nx.B_start.new_zeros((2, 1))],
+                        1)[None]))
+    o = mv_ops["d5"]
+    blocks.append(dict(
+        ev=o["ev"], Y=o["Y"], X0=o["X0"], R=o["R1"],
+        Vg=o["null"].Vg_start[None], Ve=o["null"].Ve_start[None],
+        B=o["null"].B_start[None], form="d5", launches=counts_f["d5"],
+        sfx="", tight=True, staged=True, cap=mvc.nr_switch_point(1000)))
+    for blk in blocks:
+        _hold_mv_block(blk, record, check, amax)
 
 
 def main():
@@ -967,7 +997,8 @@ def main():
     per_lane = {}         # kernel → {form: record} for the per-lane forms
 
     def record(name, err, ms, plain_ms, nbytes, nops, peak=PEAK_F32_PER_S,
-               launches=None, library_ms=None, note=None, form=None):
+               launches=None, library_ms=None, note=None, form=None,
+               tol=None):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = nops / peak * 1e3
         k = getattr(kernels, name.upper())
@@ -981,7 +1012,7 @@ def main():
         if note:
             entry["note"] = note
         if form is not None:
-            entry["tolerance"] = TOL_LANE.get(name, TOL[name])
+            entry["tolerance"] = tol or TOL_LANE.get(name, TOL[name])
             per_lane.setdefault(name, {})[form] = entry
             return
         results.append({"name": name, "route": "cuda",
@@ -1327,7 +1358,7 @@ def main():
                    2 * 3 * S_ * n, peak=PEAK_F64_PER_S,
                    launches=counts_e["lm"],
                    form="gene" if gene else None)
-    _hold_mvlmm(mv_ops, counts_f, record, check, amax, dev)
+    _hold_mvlmm(mv_ops, counts_f, record, check, amax)
 
     for entry in results:
         if entry["name"] in per_lane:

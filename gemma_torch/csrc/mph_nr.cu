@@ -24,7 +24,7 @@
 // derivative sums, the Hessian's p2² entries across the block's threads
 // and its inverse on thread 0 (Gauss-Jordan, partial pivoting).  The
 // sums and the Hessian live in a per-lane scratch the wrapper allocates
-// (mph_nr_scratch gives its size).  Hvar = -H^-1 at the last point where
+// (mvlmm_core.nr_scratch mirrors mv_nr_scratch).  Hvar = -H^-1 at the last point where
 // derivatives were taken, as the reference returns it.
 //
 // Bound: operations — O(n (d² c² + d³)) float64 multiply-adds per
@@ -64,8 +64,6 @@ __host__ __device__ inline long mv_nr_scratch(int d, int c) {
   return mv_pass_size(A) + mv_pass_size(B) + 2 * p2 * p2 + nv * d * d +
          4 * d * d + p2 * d * c;
 }
-
-extern "C" long mph_nr_scratch(int d, int c) { return mv_nr_scratch(d, c); }
 
 __device__ inline void mv_unpack(int d, const double* v, double* Vg,
                                  double* Ve) {

@@ -117,13 +117,6 @@ class Kernel:
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err
 
-    def host_fn(self, name: str, argtypes: tuple, restype):
-        """A plain C host function of the kernel's library."""
-        fn = getattr(ctypes.CDLL(self.build()), name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        return fn
-
     def launch(self, device: torch.device, *args) -> None:
         """Launch on `device`'s current stream; raise on a refused launch."""
         if self._fn is None:
@@ -213,9 +206,6 @@ MPH_NR_F64 = Kernel("mph_nr_f64", _NR_ARGS, _NR_REPLACES, source="mph_nr")
 # rows) K9-K11 take (MV_MAX_D, MV_MAX_C in csrc/mvlmm_lane.cuh)
 MAX_PH = 8
 MAX_MV_ROWS = 10
-# device scratch K11's wrapper allocates at most at once (its lanes go in
-# several launches beyond it)
-NR_SCRATCH_BYTES = 256 << 20
 
 ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL, SCORE_TAIL,
        LRT_TAIL, LAMBDA_SOLVE_F64, GENO_PROLOGUE_F64, WALD_TAIL_F64,
@@ -268,12 +258,6 @@ def check_mvlmm_shape(d: int, c: int) -> None:
             f"{MAX_MV_ROWS} design rows (covariates plus the lane's own "
             f"rows), got {d} and {c} (MV_MAX_D, MV_MAX_C in gemma_torch/"
             "csrc/mvlmm_lane.cuh; ROADMAP.md records the bound)")
-
-
-def mph_nr_scratch(kern: Kernel, d: int, c: int) -> int:
-    """float64 values of K11's scratch per lane, from its library."""
-    fn = kern.host_fn("mph_nr_scratch", (_I, _I), ctypes.c_long)
-    return int(fn(d, c))
 
 
 def check_n_cvt(n_cvt: int) -> None:

@@ -722,11 +722,21 @@ def mph_nr_plain(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     return Vg, Ve, logl, -Hinv
 
 
+def nr_scratch(d: int, c: int) -> int:
+    """float64 values of K11's per-lane scratch, as mv_nr_scratch in
+    csrc/mph_nr.cu lays it out: the REML passes' sums (the core families,
+    then pass A's WW, W, N and pass B's ZZ, K, F, MTR, WWH), the Hessian
+    and its inverse, A S_a A', the trace tables and the f vectors."""
+    tc, td, p2 = c * (c + 1) // 2, d * (d + 1) // 2, d * (d + 1)
+    pass_a = (d * tc + d * c + 2 * d) + 3 * td + 2 * d + 2 * td * tc
+    pass_b = 2 * td + 3 * d * td + 2 * d * d * c + 3 * d * d + 2 * d
+    return pass_a + pass_b + 2 * p2 * p2 + td * d * d + 4 * d * d + p2 * d * c
+
+
 def mph_nr_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
                 Vg0, Ve0):
     """K11 on the card (float64 operands: its f64 instantiation).  Its
-    per-lane sums and Hessian live in a scratch the wrapper allocates; at
-    large d the lanes go in several launches to bound it."""
+    per-lane sums and Hessian live in a scratch the wrapper allocates."""
     dt = eval_.dtype
     S, n, d, c0, r = _check_lanes(eval_, X0, Y, R, dt)
     c = c0 + r
@@ -741,17 +751,13 @@ def mph_nr_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     Ve = torch.empty_like(Vg)
     logl = torch.empty(S, dtype=_F64, device=dev)
     Hvar = torch.empty((S, p2, p2), dtype=_F64, device=dev)
-    per_lane = kernels.mph_nr_scratch(kern, d, c)
-    step = max(1, min(S, kernels.NR_SCRATCH_BYTES // (8 * per_lane)))
-    scratch = torch.empty(min(S, step) * per_lane, dtype=_F64, device=dev)
-    for s0 in range(0, S, step):
-        k = min(step, S - s0)
-        kern.launch(dev, int(reml), int(max_iter), float(prec), k, n, d, c0,
+    scratch = torch.empty(S * nr_scratch(d, c), dtype=_F64, device=dev)
+    if S:
+        kern.launch(dev, int(reml), int(max_iter), float(prec), S, n, d, c0,
                     r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(),
-                    R[s0].data_ptr(), Vg0[s0 if vs else 0].data_ptr(),
-                    Ve0[s0 if vs else 0].data_ptr(), vs, scratch.data_ptr(),
-                    Vg[s0].data_ptr(), Ve[s0].data_ptr(), logl[s0:].data_ptr(),
-                    Hvar[s0].data_ptr())
+                    R.data_ptr(), Vg0.data_ptr(), Ve0.data_ptr(), vs,
+                    scratch.data_ptr(), Vg.data_ptr(), Ve.data_ptr(),
+                    logl.data_ptr(), Hvar.data_ptr())
     return Vg, Ve, logl, Hvar
 
 
