@@ -25,7 +25,16 @@
                   correlation 0.5, environmental 0.3, 8 causal SNPs):
                   `-gk`, `-lmm 1 -n 1 2` cold and warm (SNPs/s), `-lmm
                   4 -n 1 2` and `-lmm 4 -n 1 2 -gxe` in float32 and
-                  float64, `-lmm 1 -n 1 2 3 4 5` on the first 1,024 SNPs.
+                  float64, `-lmm 1 -n 1 2 3 4 5` on the first 1,024 SNPs;
+     (g) BSLMM    on the mouse genotypes, a phenotype of 10 causal SNPs
+                  (25% of the variance), a polygenic part (25%) and 10%
+                  NA, and its binary form: `-bslmm 1 -w 10000 -s
+                  100000` (a tenth of GEMMA's default chain), `-bslmm 1`
+                  in float64 (-w 1000 -s 4000), `-bslmm 2`, `-bslmm 3 -w
+                  1000 -s 10000`, `-bslmm 4` in both precisions and with
+                  rho fixed at 1, `-bslmm 5` from the card's Bayes
+                  factors, `-predict 1/2` from the card's -bslmm 1 files
+                  and `-predict 3`.
    Every kernel's launch count is set to 0 just before each path and
    read just after; each kernel of the path must have launched.
 3. Checks the output against the port's own float64 path on the CPU on
@@ -41,14 +50,23 @@
    the CPU's; (f)'s against the port's float64 CPU run, first 256 SNPs:
    within 1e-3 in float32 (>= 97% finite), within 1e-6 in float64 on
    every lane whose K9 iteration count equals the CPU's (>= 99% of
-   lanes) and 1e-3 on all; -n 1 2 3 4 5: >= 97% finite p-values.
+   lanes) and 1e-3 on all; -n 1 2 3 4 5: >= 97% finite p-values; (g)'s
+   against the port's float64 CPU runs: -bslmm 2's alpha and bv rel
+   1e-4, -bslmm 4's log BF on the first 1024 SNPs within 1e-3 (float32)
+   and 1e-8 (float64), -bslmm 5 and -predict 1/2/3 from the same files
+   rel 1e-8, -bslmm 1's initial values rel 1e-4 with the same |gamma|;
+   its mean pve within 0.1 of the simulated 0.5, >= 8 of the 10 causal
+   SNPs among the 20 of highest inclusion, and its predictions of the
+   held-out individuals correlated >= 0.3 with their genetic values.
 4. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main path's shapes (n = 1940, S = the run's
    block, c = 1, and c = 3 for K2-K7; the per-lane forms of K2-K7 at the
    GxE shapes, c = 1 plus env and x, and at the gene shapes, 2,048
    genes; K8 on SNP rows and gene rows; K9-K11 on the whole mvLMM
    protocol block, its GxE form and the five-trait block, the last at
-   the float64 tolerances), with the tolerances below, and times both
+   the float64 tolerances; K12 for 2,000 iterations from -bslmm 1's
+   state in each precision and 100 of -bslmm 3's, K13 on -bslmm 4's
+   products), with the tolerances below, and times both
    (CUDA events, median after warm-up, L2 flushed between runs; the
    plain mvLMM loops once, on the call compared).
 5. Prints the card's name and power limit, the kernels line and, last,
@@ -134,6 +152,18 @@ TOL = {
                       "|beta - beta_plain| <= 1e-8 se",
     "mph_nr": "logl rel <= 1e-10, Hvar rel <= 1e-8",
     "mph_nr_f64": "logl rel <= 1e-10, Hvar rel <= 1e-8",
+    # K12 and its plain version take the same Philox draws and compute in
+    # float64; sums in another order move logpost by ~1e-13, which flips
+    # an accept decision only if log u lands that close to log(MH ratio)
+    "bslmm_chain": "every iteration recorded: the same accept decisions "
+                   "and ranks, hyperparameter rows rel <= 1e-9, up to the "
+                   "first divergence, which comes after iteration 1,000 "
+                   "(the probit form: after its 100) or never",
+    "bslmm_chain_f64": "as bslmm_chain",
+    # float64 epilogue in both from the same products
+    "dap_bf": "|BF - BF_plain| <= 1e-6 |BF_plain|, the same finite entries",
+    "dap_bf_f64": "|BF - BF_plain| <= 1e-10 |BF_plain|, the same finite "
+                  "entries",
 }
 # the per-lane forms of K2-K7 (GxE, gene mode) are held to their shared
 # forms' tolerances, but for the float32 tests: at GxE's 3 covariates
@@ -152,6 +182,12 @@ CHECK_SNPS = 1024
 P_COLS = ("p_wald", "p_lrt", "p_score")
 # phase (f): the releases.org mvLMM protocol shape (bench.py:78)
 MV_N, MV_P, MV_TRAITS, MV_CAUSAL, MV_CHECK = 757, 10775, 5, 8, 256
+# phase (g): BSLMM on the mouse genotypes
+BSLMM_CAUSAL, BSLMM_HELD, BSLMM_SEED = 10, 0.10, 1
+# -bslmm 1's chain: a tenth of GEMMA's default -w 100000 -s 1000000
+BSLMM_W, BSLMM_S = 10000, 100000
+# the chain held against its plain version, and the K12 timing run
+HOLD_ITERS, TIME_ITERS = 2000, 1000
 RESULTS = {}             # -o tag → what batch_run returned
 
 
@@ -160,20 +196,25 @@ def _fail(msg):
     sys.exit(1)
 
 
+def _mouse_blocks(rng, n=MOUSE_N, p=MOUSE_P, block=1024):
+    """The mouse genotypes in blocks of SNPs: (first SNP, dosages (k, n)
+    int8, missing (k, n) bool), 3% missing."""
+    for s in range(0, p, block):
+        k = min(block, p - s)
+        maf = rng.uniform(0.05, 0.5, k)
+        X = rng.binomial(2, maf[:, None], size=(k, n)).astype(np.int8)
+        yield s, X, rng.random((k, n)) < 0.03
+
+
 def _synth_mouse(td, n=MOUSE_N, p=MOUSE_P, seed=0):
     """mouse_hs1940-scale BIMBAM gz + pheno (3% missing dosages), the
     same recipe as the reference package's bench."""
     rng = np.random.default_rng(seed)
     geno = os.path.join(td, "geno.txt.gz")
     pheno = os.path.join(td, "pheno.txt")
-    block = 1024
     with gzip.open(geno, "wt", compresslevel=1) as fh:
-        for s in range(0, p, block):
-            k = min(block, p - s)
-            maf = rng.uniform(0.05, 0.5, k)
-            X = rng.binomial(2, maf[:, None], size=(k, n)).astype(np.int8)
-            miss = rng.random((k, n)) < 0.03
-            for j in range(k):
+        for s, X, miss in _mouse_blocks(rng, n, p):
+            for j in range(X.shape[0]):
                 vals = np.char.mod("%d", X[j]).astype(object)
                 vals[miss[j]] = "NA"
                 fh.write(f"rs{s + j}, A, T, " + ", ".join(vals) + "\n")
@@ -181,6 +222,43 @@ def _synth_mouse(td, n=MOUSE_N, p=MOUSE_P, seed=0):
         for v in rng.normal(size=n):
             fh.write(f"{v:.6f}\n")
     return geno, pheno
+
+
+def _synth_bslmm(td, n=MOUSE_N, p=MOUSE_P, seed=5):
+    """Phase (g)'s phenotypes on the mouse genotypes (replayed from
+    _synth_mouse's stream): BSLMM_CAUSAL SNPs with 25% of the variance
+    (about 2.5% each), a polygenic part (every SNP) with 25%, noise 50%,
+    and BSLMM_HELD of the
+    individuals NA; its binary form (above the median) for -bslmm 3; the
+    first CHECK_SNPS SNPs' names.  Returns the causal SNPs, the genetic
+    values and the held-out individuals."""
+    X = np.empty((p, n), np.float32)
+    for s, Xb, miss in _mouse_blocks(np.random.default_rng(0), n, p):
+        Xb = Xb.astype(np.float32)
+        Xb[miss] = np.nan
+        X[s:s + Xb.shape[0]] = Xb
+    mean = np.nanmean(X, axis=1, keepdims=True)
+    X = np.where(np.isnan(X), mean, X) - mean
+    rng = np.random.default_rng(seed)
+    causal = np.sort(rng.choice(p, BSLMM_CAUSAL, replace=False))
+    # each causal SNP about a tenth of the sparse part (random signs); the
+    # polygenic part with iid effects on the centred genotypes, the prior
+    # of GEMMA's kinship
+    Xs = X[causal] / X[causal].std(axis=1, keepdims=True)
+    gc = rng.choice([-1.0, 1.0], BSLMM_CAUSAL) @ Xs.astype(np.float64)
+    gp = (rng.normal(size=p).astype(np.float32) @ X).astype(np.float64)
+    e = rng.normal(size=n)
+    gc, gp, e = (v / v.std() * np.sqrt(f) for v, f in
+                 ((gc, 0.25), (gp, 0.25), (e, 0.5)))
+    g = gc + gp
+    y = g + e
+    held = rng.random(n) < BSLMM_HELD
+    for name, v in (("bs_pheno", y), ("bs_binary",
+                                     (y > np.median(y)).astype(float))):
+        with open(os.path.join(td, f"{name}.txt"), "w") as fh:
+            fh.write("".join("NA\n" if h else f"{x:.6f}\n"
+                             for x, h in zip(v, held)))
+    return causal, g, held
 
 
 def _synth_plink(td, n=PLINK_N, p=PLINK_P, n_cov=PLINK_COV, seed=1):
@@ -390,7 +468,9 @@ def _log_times(path):
     return out
 
 
-def _run(argv, device):
+def _run(argv, device, keep=False):
+    """Run one path; RESULTS keeps what it returned under its -o tag
+    (with `keep`, all of it)."""
     from gemma_torch.cli import parse_args
     from gemma_torch.run import batch_run
     import torch
@@ -400,17 +480,19 @@ def _run(argv, device):
                     device=device)
     if device == "cuda":
         torch.cuda.synchronize()
-    if isinstance(res, dict) and "em_iters" in res.get("stats", {}):
-        RESULTS[argv[argv.index("-o") + 1]] = {
-            k: res[k] for k in ("stats", "snp_indices")}
+    tag = argv[argv.index("-o") + 1]
+    if keep:
+        RESULTS[tag] = res
+    elif isinstance(res, dict) and "em_iters" in res.get("stats", {}):
+        RESULTS[tag] = {k: res[k] for k in ("stats", "snp_indices")}
     return time.time() - t0
 
 
-def _drive(kernels, paths, name, argvs, need):
+def _drive(kernels, paths, name, argvs, need, keep=False):
     """Run one path with every launch count at 0; return the counts.
     Fails unless every kernel named in `need` launched."""
     kernels.reset_launches()
-    secs = [(tag, _run(argv, "cuda")) for tag, argv in argvs]
+    secs = [(tag, _run(argv, "cuda", keep)) for tag, argv in argvs]
     counts = {k.name: k.launches for k in kernels.ALL}
     paths[name] = {"secs": secs, "launches": counts}
     for k in need:
@@ -728,6 +810,263 @@ def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
         _hold_mv_block(blk, record, check, amax)
 
 
+def _drive_bslmm(kernels, paths, td, geno, f64):
+    """Phase (g): BSLMM and prediction on the mouse genotypes with phase
+    (g)'s phenotypes, on the card, and their checks against the port's
+    float64 CPU runs; returns the paths' launch counts."""
+    t_g = time.time()
+    causal, g_true, held = _synth_bslmm(td)
+    _say({"phase": "data_bslmm", "seconds": time.time() - t_g})
+    base = f"-g {geno} -outdir {td} -no-check -seed {BSLMM_SEED}".split()
+    bs = base + f"-p {td}/bs_pheno.txt".split()
+    kin = f"-k {td}/Kd.cXX.txt".split()
+    chain = f"-bslmm 1 -w {BSLMM_W} -s {BSLMM_S}".split()
+    chain32 = ("geno_prologue", "lambda_grid", "lambda_solve", "bslmm_chain")
+    # the DAP grid's default h range ends at h = 1, where its sigma_a2 is
+    # undefined (ROADMAP §C13)
+    dap4 = "-bslmm 4 -hmax 0.95".split()
+    counts = {
+        "b1": _drive(kernels, paths, "bslmm1", [
+            ("bslmm1", bs + chain + "-o B1".split())], chain32, keep=True),
+        "b1_f64": _drive(kernels, paths, "bslmm1_f64", [
+            ("bslmm1_f64", bs + f64 + "-bslmm 1 -w 1000 -s 4000 "
+             "-o B1d".split())],
+            ("geno_prologue_f64", "lambda_solve_f64", "bslmm_chain_f64"),
+            keep=True),
+        "b2": _drive(kernels, paths, "bslmm2", [
+            ("bslmm2", bs + kin + "-bslmm 2 -o B2".split())],
+            ("geno_prologue",), keep=True),
+        "b3": _drive(kernels, paths, "bslmm3", [
+            ("bslmm3", base + f"-p {td}/bs_binary.txt -bslmm 3 -w 1000 "
+             "-s 10000 -o B3".split())], ("bslmm_chain",), keep=True),
+        "b4": _drive(kernels, paths, "bslmm4", [
+            ("bslmm4", bs + kin + dap4 + "-o B4".split())], ("dap_bf",),
+            keep=True),
+        "b4_f64": _drive(kernels, paths, "bslmm4_f64", [
+            ("bslmm4_f64", bs + kin + f64 + dap4 + "-o B4d".split())],
+            ("dap_bf_f64",), keep=True),
+        "b4_rho1": _drive(kernels, paths, "bslmm4_rho1", [
+            ("bslmm4_rho1", bs + "-bslmm 4 -rmin 1 -rmax 1 -w 100 -s 1000 "
+             "-o B4r".split())], ("bslmm_chain",)),
+    }
+    # -bslmm 5 from the card's float64 Bayes factors (blocks of 100 SNPs,
+    # the reader's `rs block BF...` layout) with annotations
+    _bf_input(td, "B4d")
+    dap5 = (f"-bslmm 5 -hyp {td}/B4d.hyp.txt -bf {td}/bf_in.txt "
+            f"-cat {td}/cat.txt -outdir {td}").split()
+    epm = (f"-epm {td}/B1.param.txt -emu {td}/B1.log.txt").split()
+    pred = [("bslmm5", dap5 + "-o B5".split()),
+            ("predict1", bs + epm + f"-ebv {td}/B1.bv.txt".split() + kin
+             + "-predict 1 -o P1".split()),
+            ("predict2", bs + epm + "-predict 2 -o P2".split()),
+            ("predict3", bs + kin + f64 + "-predict 3 -o P3".split())]
+    counts["pred"] = _drive(kernels, paths, "bslmm5_predict", pred,
+                            ("lambda_solve_f64",), keep=True)
+    _say({"phase": "e2e_bslmm", "paths": {
+        k: v for k, v in paths.items() if k.startswith(("bslmm", "pred"))},
+        "bslmm1_chain_seconds": RESULTS["B1"]["chain_seconds"],
+        "bslmm1_ms_per_1000_iterations": RESULTS["B1"]["chain_seconds"]
+        * 1e3 / (BSLMM_W + BSLMM_S) * 1e3})
+    prof = _profile(bs + "-bslmm 1 -w 2000 -s 20000 -o BW".split())
+    _say({"phase": "profile_bslmm1_22000_iterations", **prof})
+
+    # against the port's float64 CPU runs on the same files
+    t0 = time.time()
+    with open(f"{td}/first.snps", "w") as fh:
+        fh.write("\n".join(f"rs{j}" for j in range(CHECK_SNPS)) + "\n")
+    cpu = [("CB1", bs + "-bslmm 1 -w 0 -s 1".split()),
+           ("CB2", bs + kin + "-bslmm 2".split()),
+           ("CB4", bs + kin + f"-snps {td}/first.snps".split() + dap4),
+           ("CB5", dap5),
+           ("CP1", bs + epm + f"-ebv {td}/B1.bv.txt".split() + kin
+            + ["-predict", "1"]),
+           ("CP2", bs + epm + ["-predict", "2"]),
+           ("CP3", bs + kin + ["-predict", "3"])]
+    for tag, argv in cpu:
+        _run(argv + ["-o", tag], "cpu", keep=True)
+    R = RESULTS
+    chk = {"cpu_f64_seconds": time.time() - t0}
+
+    def rel(a, b):
+        """max |a - b| / max |b| over b's finite entries (inf where a is
+        not finite there or where the two disagree on which are)."""
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        fin = np.isfinite(b)
+        if (np.isfinite(a) != fin).any():
+            return float("inf")
+        return float(np.max(np.abs(a[fin] - b[fin])) / np.max(np.abs(b[fin])))
+
+    failed = []
+
+    def need(name, ok):
+        chk[name + "_ok"] = bool(ok)
+        if not ok:
+            failed.append(name)
+
+    # -bslmm 1: the initial state, the chain's summaries, the prediction
+    i32, i64 = R["B1"]["init"], R["CB1"]["init"]
+    chk["b1_init"] = {"card_f32": i32, "cpu_f64": i64}
+    need("b1_init", i32["n_gamma"] == i64["n_gamma"] and all(
+        abs(i32[k] - i64[k]) <= 1e-4 * abs(i64[k])
+        for k in ("h", "rho", "logp")))
+    st = R["B1"]["state"]
+    hyp = st.rec_hyp[:st.w].cpu().numpy()
+    top20 = np.argsort(-R["B1"]["gamma"], kind="stable")[:20]
+    idx = np.flatnonzero(R["B1"]["dataset"].qc.indicator_snp)
+    found = len(set(idx[top20]) & set(causal))
+    accept = st.n_accept / (BSLMM_W + BSLMM_S)
+    p1 = R["P1"]
+    r_pred = float(np.corrcoef(p1, g_true[held])[0, 1])
+    chk["b1"] = {"records": st.w, "pve_mean": float(hyp[:, 1].mean()),
+                 "n_gamma_mean": float(hyp[:, 5].mean()),
+                 "causal_in_top20_pip": found, "acceptance": accept,
+                 "predict_r_held_out": r_pred, "held_out": int(held.sum())}
+    need("b1_pve", abs(hyp[:, 1].mean() - 0.5) <= 0.1)
+    need("b1_causal", found >= 8)
+    need("b1_predict", r_pred >= 0.3)
+    hyp_d = R["B1d"]["state"].rec_hyp[:R["B1d"]["state"].w].cpu().numpy()
+    chk["b1_f64"] = {"records": int(hyp_d.shape[0]),
+                     "pve_mean": float(hyp_d[:, 1].mean())}
+    need("b1_f64", np.isfinite(hyp_d).all() and hyp_d.shape[0] == 400)
+    h3 = R["B3"]["state"].rec_hyp[:R["B3"]["state"].w].cpu().numpy()
+    chk["b3"] = {"records": int(h3.shape[0]),
+                 "pve_mean": float(h3[:, 1].mean()),
+                 "acceptance": R["B3"]["state"].n_accept / (
+                     (R["B3"]["settings"].w_step + R["B3"]["settings"].s_step)
+                     * R["B3"]["settings"].n_mh)}
+    need("b3", np.isfinite(h3).all() and ((h3[:, 1] >= 0)
+                                          & (h3[:, 1] <= 1)).all())
+    # -bslmm 2: alpha and bv, float32 against float64
+    chk["b2_alpha_rel"] = rel(R["B2"]["alpha"], R["CB2"]["alpha"])
+    chk["b2_bv_rel"] = rel(R["B2"]["bv"], R["CB2"]["bv"])
+    need("b2", chk["b2_alpha_rel"] <= 1e-4 and chk["b2_bv_rel"] <= 1e-4)
+    # -bslmm 4: log BF on the first CHECK_SNPS SNPs
+    ref = np.log(R["CB4"]["BF"])
+    snps_cpu = np.flatnonzero(R["CB4"]["dataset"].qc.indicator_snp)
+    for tag, tol in (("B4", 1e-3), ("B4d", 1e-8)):
+        pos = {j: i for i, j in enumerate(
+            np.flatnonzero(R[tag]["dataset"].qc.indicator_snp))}
+        got = np.log(R[tag]["BF"][[pos[j] for j in snps_cpu]])
+        fin = np.isfinite(ref)
+        err = float(np.max(np.abs(got[fin] - ref[fin])))
+        chk[tag + "_logbf_max_abs"] = err
+        chk[tag + "_finite_where_cpu"] = float(np.isfinite(got[fin]).mean())
+        need(tag, err <= tol and np.isfinite(got[fin]).all()
+             and fin.mean() >= 0.8)
+    # -bslmm 5 and -predict from the same files
+    for tag, ref_tag in (("B5", "CB5"), ("P1", "CP1"), ("P2", "CP2"),
+                         ("P3", "CP3")):
+        a, b = R[tag], R[ref_tag]
+        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        chk[tag + "_rel"] = err = max(rel(x, y) for x, y in pairs)
+        need(tag, err <= 1e-8)
+    chk["phase_g_seconds"] = time.time() - t_g
+    _say({"phase": "check_bslmm", **chk})
+    if failed:
+        raise RuntimeError(f"phase (g) checks failed: {failed}")
+    return counts
+
+
+def _bf_input(td, tag):
+    """A -bf input (`rs block BF...`, blocks of 100 SNPs) from a -bslmm 4
+    run's .bf.txt, and a -cat annotation file (a discrete and a
+    continuous column) for its SNPs."""
+    with open(f"{td}/{tag}.bf.txt") as fh:
+        head = fh.readline().split()
+        rows = [ln.split() for ln in fh]
+    rng = np.random.default_rng(9)
+    with open(f"{td}/bf_in.txt", "w") as fh, open(f"{td}/cat.txt",
+                                                  "w") as fc:
+        fh.write("rs\tblock\t" + "\t".join(head[4:]) + "\n")
+        fc.write("rs\tcoding\tscore_c\n")
+        for i, r in enumerate(rows):
+            fh.write(f"{r[1]}\tb{i // 100}\t" + "\t".join(r[4:]) + "\n")
+            fc.write(f"{r[1]}\t{int(rng.random() < 0.2)}\t"
+                     f"{rng.normal():.4f}\n")
+
+
+def _hold_bslmm(counts_g, record, check):
+    """K12 against its plain version on the card, on the -bslmm 1 paths'
+    operands (float32 and float64) and the -bslmm 3 path's, from the
+    paths' initial states and seed, every iteration recorded; K13 on the
+    -bslmm 4 paths' products."""
+    import dataclasses
+    import torch
+    from gemma_torch.models import bslmm as pb
+    from gemma_torch.models import bslmmdap as dap
+    for tag, sfx, cnt, iters, form in (
+            ("B1", "", counts_g["b1"], HOLD_ITERS, None),
+            ("B1d", "_f64", counts_g["b1_f64"], HOLD_ITERS, None),
+            ("B3", "", counts_g["b3"], 100, "probit")):
+        res = RESULTS[tag]
+        ops, i0 = res["ops"], res["init"]
+        n = ops.eval.shape[0]
+        st = dataclasses.replace(res["settings"], w_step=0, s_step=iters,
+                                 r_pace=1)
+        s0 = pb.init_state(ops, st, i0["h"], i0["rho"], i0["logp"],
+                           i0["n_gamma"], BSLMM_SEED)
+        kk = pb.bslmm_chain_cuda(ops, st, s0, iters, BSLMM_SEED)
+        pp, pms = _timed(lambda: pb.bslmm_chain_plain(ops, st, s0, iters,
+                                                      BSLMM_SEED))
+        hk, hp = kk.rec_hyp.cpu().numpy(), pp.rec_hyp.cpu().numpy()
+        gk, gp = kk.rec_gamma.cpu().numpy(), pp.rec_gamma.cpu().numpy()
+        row_rel = (np.abs(hk - hp) / np.maximum(np.abs(hp), 1e-300)).max(1)
+        apart = np.flatnonzero((row_rel > 1e-9) | (gk != gp).any(1))
+        first = int(apart[0]) if apart.size else None
+        err = float(row_rel[:first].max()) if first != 0 else 0.0
+        t_iters = min(TIME_ITERS, iters)
+        ms = _time_ms(lambda: pb.bslmm_chain_cuda(ops, st, s0, t_iters,
+                                                  BSLMM_SEED), 3)
+        ng = float(hk[:t_iters, 5].mean())
+        posts = st.n_mh + (st.a_mode == 13)
+        isz = torch.finfo(ops.UtXT.dtype).bits // 8
+        nops = t_iters * posts * (n * ng * ng + ng ** 3 / 3 + 20 * n)
+        nbytes = t_iters * posts * (n * ng * isz + 10 * n * 8)
+        if st.a_mode == 13:
+            nops += t_iters * 4 * n * n
+            nbytes += t_iters * 2 * n * n * isz
+        ok = (first is None or first >= min(1000, iters)) and err <= 1e-9
+        check("bslmm_chain" + sfx, ok, {
+            "block": form or "chain", "iterations": iters,
+            "first_divergence": first, "hyp_max_rel_err_before": err,
+            "accepts_card": kk.n_accept, "accepts_plain": pp.n_accept,
+            "timed_iterations": t_iters, "mean_n_gamma": ng, "ms": ms,
+            "plain_ms": pms * t_iters / iters})
+        record("bslmm_chain" + sfx, err, ms, pms * t_iters / iters, nbytes,
+               nops, peak=PEAK_F64_PER_S, launches=cnt, form=form,
+               note=f"ms: one launch of {t_iters} iterations; bound_ms "
+                    "from this run's mean n_gamma, per iteration: "
+                    "operations n n_gamma² + n_gamma³/3 + 20 n and bytes "
+                    "n n_gamma (the active rows) + 10 n words for each "
+                    "posterior (and 4 n² operations, 2 n² elements of U "
+                    "for the probit step); a chain is sequential and runs "
+                    "on one SM, so it sits far above this whole-card bound")
+    for tag, sfx, cnt, tol in (("B4", "", counts_g["b4"], 1e-6),
+                               ("B4d", "_f64", counts_g["b4_f64"], 1e-10)):
+        res = RESULTS[tag]
+        grid = res["grid"]
+        Uty = res["Uty"]
+        n = Uty.shape[0]
+        tau = n / float(Uty.double() @ Uty.double())
+        prods = dap.bf_products(res["UtXT"], Uty, res["eval"], grid[:, 3])
+        sa2 = torch.as_tensor(grid[:, 2], dtype=torch.float64,
+                              device=Uty.device)
+        a = prods + (sa2, tau, n)
+        bk, bp = dap.bf_epilogue_cuda(*a), dap.bf_epilogue_plain(*a)
+        fin = torch.isfinite(bp)
+        err = float(((bk - bp).abs() / bp.abs())[fin].max())
+        same = bool((torch.isfinite(bk) == fin).all())
+        ms = _time_ms(lambda: dap.bf_epilogue_cuda(*a), 20)
+        pms = _time_ms(lambda: dap.bf_epilogue_plain(*a), 5)
+        S, G = bk.shape
+        isz = prods[0].element_size()
+        check("dap_bf" + sfx, err <= tol and same,
+              {"max_rel_err": err, "same_finite": same, "S": S, "G": G,
+               "ms": ms, "plain_ms": pms})
+        record("dap_bf" + sfx, err, ms, pms, S * G * (2 * isz + 8) + 24 * G,
+               25 * S * G, peak=PEAK_F64_PER_S, launches=cnt)
+
+
 def main():
     t_start = time.time()
     try:
@@ -966,6 +1305,8 @@ def main():
 
         # (f) the multivariate LMM at the releases.org protocol shape
         counts_f, mv_ops = _drive_mvlmm(kernels, paths, td, f64, dev)
+        # (g) BSLMM and prediction on the mouse genotypes
+        counts_g = _drive_bslmm(kernels, paths, td, geno, f64)
 
         # 4. kernels against their plain versions, main-path shapes
         from gemma_torch.config import GemmaConfig
@@ -1359,6 +1700,7 @@ def main():
                    launches=counts_e["lm"],
                    form="gene" if gene else None)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)
+    _hold_bslmm(counts_g, record, check)
 
     for entry in results:
         if entry["name"] in per_lane:

@@ -9,10 +9,12 @@ Layering (bottom → top):
   csrc/, kernels/  hand-written CUDA kernels for sm_90a, built with
                    nvcc at first use and bound with ctypes.
   ops/             genotype decode/centre, kinship, centring, eigh,
-                   survival functions.
+                   survival functions, the Philox random stream.
   io/              genotype/phenotype ingestion, QC, writers (copies of
                    the reference package's host modules).
   models/lmm/      the univariate LMM: likelihood, λ search, engine.
+  models/          the linear model, the multivariate LMM, BSLMM and
+                   its DAP approximation, phenotype prediction.
   run.py           `batch_run`, the GEMMA mode dispatch.
 """
 

@@ -7,7 +7,8 @@ eigendecomposition (eval, U), the rotated covariates and phenotype
 produced them — into device tensors in the port's layout, so two
 implementations can be fed identical eigenfactors and null fits;
 `mvlmm_state_from_numpy` does the same for the multivariate LMM's
-rotated operands and null (Vg, Ve, B).
+rotated operands and null (Vg, Ve, B), and `bslmm_inputs_from_numpy` for
+the BSLMM chain's operands, settings and starting values.
 cuSOLVER's and LAPACK's eigenvectors differ in sign and inside
 degenerate eigenspaces; comparing the association downstream of shared
 factors takes that out of the comparison.
@@ -15,11 +16,13 @@ factors takes that out of the comparison.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from gemma_torch.models import bslmm
 from gemma_torch.models.lmm.engine import NullFit
 from gemma_torch.models.lmm.likelihood import LmmBatchData, build_batch_data
 
@@ -89,3 +92,39 @@ def mvlmm_state_from_numpy(eval_, X0, Y, *, Vg, Ve, B=None, R=None,
     return MvlmmState(eval=t(eval_), X0=t(X0), Y=t(Y),
                       R=None if R is None else t(R), Vg=lanes(Vg),
                       Ve=lanes(Ve), B=None if B is None else lanes(B))
+
+
+class BslmmInputs(NamedTuple):
+    ops: bslmm.ChainOperands
+    settings: bslmm.BslmmSettings
+    h0: float
+    rho0: float
+    logp0: float
+    n_gamma0: int
+
+
+def bslmm_inputs_from_numpy(UtX_sorted, Uty, eval_, trace_G, settings, *,
+                            h0, rho0, logp0, n_gamma0, U=None,
+                            y_labels=None, device: str | torch.device = "cpu",
+                            dtype: torch.dtype = torch.float64
+                            ) -> BslmmInputs:
+    """A BSLMM run's chain inputs in the reference's layout — UtX_sorted
+    (n, p) with columns in rank order, Uty and eval (n,), trace_G, a
+    settings object with BslmmSettings' fields (the reference's, or a
+    dict), the initial (h, rho, log pi, |gamma|) and, for the probit
+    model, U (n, n) and the centred labels — as the port's ChainOperands
+    (UtXT (p, n) rows in rank order) and BslmmSettings."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(a)),
+                               dtype=dtype, device=device)
+
+    get = settings.get if isinstance(settings, dict) else (
+        lambda k: getattr(settings, k))
+    fields = [f.name for f in dataclasses.fields(bslmm.BslmmSettings)]
+    st = bslmm.BslmmSettings(**{f: get(f) for f in fields})
+    ops = bslmm.chain_operands(
+        t(np.asarray(UtX_sorted).T), t(Uty), t(eval_), float(trace_G),
+        st.geo_mean, U=None if U is None else t(U),
+        y_labels=None if y_labels is None else t(y_labels))
+    return BslmmInputs(ops, st, float(h0), float(rho0), float(logp0),
+                       int(n_gamma0))

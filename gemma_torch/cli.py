@@ -100,7 +100,9 @@ Flag-compatible with GEMMA (gemma.cpp PrintHelp, :153-752).
   -block-size [num]     SNPs per device batch
   -device    [cuda|cpu] where the analysis runs (default cuda; there is
                         no fallback to the CPU)
-  -ckpt      [num]      BSLMM chain checkpoint stride (BSLMM not ported)
+  -ckpt      [num]      checkpoint the BSLMM chain every N iterations;
+                        an interrupted run resumes from
+                        <prefix>.mcmc.ckpt.npz automatically
   -trace     [dir]      profiler trace of the analysis (not ported)
   -h / -license         this help / license info
 """

@@ -207,10 +207,29 @@ MPH_NR_F64 = Kernel("mph_nr_f64", _NR_ARGS, _NR_REPLACES, source="mph_nr")
 MAX_PH = 8
 MAX_MV_ROWS = 10
 
+# K12, the BSLMM chain: segment, shapes and settings, the seed, then the
+# operands, the state and the scratch (models/bslmm.py bslmm_chain_cuda)
+_CHAIN_ARGS = (_I,) * 10 + (ctypes.c_uint64,) + (_P,) * 21 + (_I, _P)
+_CHAIN_REPLACES = ("gemma_tpu/models/bslmm.py:121 make_mcmc_step "
+                   "(calc_posterior :144, sample_new_rank :202, "
+                   "propose_gamma :227, propose_h_rho_pi :289, mh_step :315, "
+                   "iteration :353) + :421 run_mcmc (fori_loop :461-463)")
+BSLMM_CHAIN = Kernel("bslmm_chain", _CHAIN_ARGS, _CHAIN_REPLACES)
+BSLMM_CHAIN_F64 = Kernel("bslmm_chain_f64", _CHAIN_ARGS, _CHAIN_REPLACES,
+                         source="bslmm_chain")
+# largest s_max K12 takes (BS_MAX_S in csrc/bslmm_chain.cu)
+MAX_S_MAX = 1024
+# K13, the DAP Bayes-factor epilogue
+_BF_ARGS = (_P, _P, _P, _P, _P, _D, _I, _I, _I, _P)
+_BF_REPLACES = "gemma_tpu/models/bslmmdap.py:43 _bf_table"
+DAP_BF = Kernel("dap_bf", _BF_ARGS, _BF_REPLACES)
+DAP_BF_F64 = Kernel("dap_bf_f64", _BF_ARGS, _BF_REPLACES, source="dap_bf")
+
 ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL, SCORE_TAIL,
        LRT_TAIL, LAMBDA_SOLVE_F64, GENO_PROLOGUE_F64, WALD_TAIL_F64,
        SCORE_TAIL_F64, LM_TAIL, LM_TAIL_F64, MPH_EM, MPH_EM_F64, MPH_CALC_P,
-       MPH_CALC_P_F64, MPH_NR, MPH_NR_F64)
+       MPH_CALC_P_F64, MPH_NR, MPH_NR_F64, BSLMM_CHAIN, BSLMM_CHAIN_F64,
+       DAP_BF, DAP_BF_F64)
 
 
 def variant(k32: Kernel, k64: Kernel, dtype: torch.dtype) -> Kernel:
@@ -258,6 +277,13 @@ def check_mvlmm_shape(d: int, c: int) -> None:
             f"{MAX_MV_ROWS} design rows (covariates plus the lane's own "
             f"rows), got {d} and {c} (MV_MAX_D, MV_MAX_C in gemma_torch/"
             "csrc/mvlmm_lane.cuh; ROADMAP.md records the bound)")
+
+
+def check_bslmm_shape(s_max: int) -> None:
+    if not 1 <= s_max <= MAX_S_MAX:
+        raise ValueError(f"the BSLMM chain kernel takes s_max 1..{MAX_S_MAX}, "
+                         f"got {s_max} (BS_MAX_S in gemma_torch/csrc/"
+                         "bslmm_chain.cu; ROADMAP.md records the bound)")
 
 
 def check_n_cvt(n_cvt: int) -> None:

@@ -1,5 +1,6 @@
 """Survival functions of the F and chi-square distributions
-(gsl_cdf_fdist_Q, gsl_cdf_chisq_Q).
+(gsl_cdf_fdist_Q, gsl_cdf_chisq_Q) and the normal CDF
+(gsl_cdf_gaussian_P).
 
 torch has no regularised incomplete beta, so `betainc` here is the
 Lentz continued fraction (Numerical Recipes `betacf`), written as masked
@@ -152,3 +153,10 @@ def chisq_sf(x: torch.Tensor, df: float) -> torch.Tensor:
     """Q(x) of chi-square(df) = Q(df/2, x/2), matching gsl_cdf_chisq_Q,
     in x's dtype (computed in float64)."""
     return gammaincc(0.5 * df, 0.5 * x.to(torch.float64)).to(x.dtype)
+
+
+def normal_cdf(x: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
+    """P(N(0, sigma²) <= x), matching `gsl_cdf_gaussian_P`, in x's dtype."""
+    x = torch.as_tensor(x)
+    z = x / (sigma * torch.sqrt(torch.tensor(2.0, dtype=x.dtype)))
+    return 0.5 * (1.0 + torch.special.erf(z))

@@ -3,9 +3,10 @@
 The port runs `-gk 1|2` (kinship), `-eigen`, the univariate LMM
 `-lmm 1/2/3/4/5/9` from `-k` or `-u/-d` (with `-widv` residual weights,
 `-gxe`, `-gene`, LOCO and `-ksnps`/`-gwasnps`), the multivariate LMM
-(`-lmm 1/2/3/4/9` with several `-n`, with `-gxe`) and the linear model
-`-lm 1/2/3/4` (with `-gene`), on one device, in float32 (speed mode) or
-float64 (parity mode).  Each
+(`-lmm 1/2/3/4/9` with several `-n`, with `-gxe`), the linear model
+`-lm 1/2/3/4` (with `-gene`), BSLMM `-bslmm 1-5` and prediction
+`-predict 1/2/3`, on one device, in float32 (speed mode) or float64
+(parity mode).  Each
 `run_*` wires the dataset through the device code and writes
 GEMMA-compatible files; `batch_run` dispatches on a_mode like the
 reference's if-chain.
@@ -26,14 +27,19 @@ from gemma_torch.dataset import Dataset, load_dataset
 from gemma_torch import kernels
 from gemma_torch.io.readers import (read_eigen_d, read_eigen_u,
                                     read_gene_expression, read_kinship)
+from gemma_torch.io.readers import read_gxe
 from gemma_torch.io.writers import (
     write_matrix, write_vector, write_lmm_assoc, write_lmm_gene_assoc,
     write_lm_assoc, write_lm_gene_assoc, write_mvlmm_assoc,
+    write_bslmm_hyp, write_bslmm_gamma, write_bslmm_param, write_bslmm_bv,
     snp_rows_from_table, ensure_outdir,
 )
+from gemma_torch.models import bslmm, bslmmdap, predict
 from gemma_torch.models.lm import lm_block, lm_gene_block
+from gemma_torch.models.lmm import likelihood as lk
 from gemma_torch.models.lmm.engine import (
     assoc_block_impl, assoc_gene_block_impl, assoc_gxe_block_impl, fit_null)
+from gemma_torch.models.lmm.optimize import calc_lambda
 from gemma_torch.models.mvlmm import MvlmmNull, mvlmm_assoc, mvlmm_assoc_gxe
 from gemma_torch.ops.center import center_matrix
 from gemma_torch.ops.eigh import eigh_zeroed, zero_eigenvalues
@@ -44,7 +50,6 @@ from gemma_torch.utils.validate import check_finite, validate_kinship
 
 # analysis modes outside this slice → their ROADMAP.md queue entry
 _NOT_PORTED = {
-    (11, 12, 13, 14, 15, 41, 42, 43): "queue A, \"BSLMM and prediction\"",
     (25, 26, 27, 28, 61, 62, 63, 66, 67, 71, 72):
         "queue A, \"variance components and summary statistics\"",
 }
@@ -594,6 +599,399 @@ def run_lm(cfg: GemmaConfig, log: RunLog | None = None,
 
 
 # ---------------------------------------------------------------------------
+# -bslmm: BSLMM (modes 11-14) and its DAP EM (mode 15)
+
+def _centred_genotypes(cfg: GemmaConfig, ds: Dataset, idx: np.ndarray,
+                       dtype: torch.dtype, device: torch.device):
+    """(p, n) mean-imputed genotypes of the SNPs `idx` over the analyzed
+    individuals, each row centred (ReadGenotypes' second pass,
+    gemma_io.cpp:1742-1838): K1's imputed operand, block by block."""
+    n = ds.ni_test
+    Xc = torch.empty((len(idx), n), dtype=dtype, device=device)
+    bs = _block_size(cfg, device, len(idx), n_axis=n)
+    for s in range(0, len(idx), bs):
+        sel = idx[s:s + bs]
+        raw = _raw_wire_block(ds, sel, bs, dtype, all_individuals=False)
+        x = prologue(_to_device(raw, device), n, IMPUTE,
+                     dtype=dtype)[:len(sel)]
+        Xc[s:s + len(sel)] = x - x.mean(dim=1, keepdim=True)
+    return Xc
+
+
+def _bslmm_ranking(cfg: GemmaConfig, eval_, UtW, Uty, UtXT, dtype,
+                   device) -> np.ndarray:
+    """Per-SNP ML log-likelihood ratio, the proposal's ranking
+    (MatrixCalcLR, lmm.cpp:1905-1943): the λ searches of -lmm (K2/K3 in
+    float32, K7 in float64) block by block."""
+    n = eval_.shape[0]
+    data0 = lk.build_batch_data(eval_, UtW, Uty,
+                                torch.zeros((1, n), dtype=dtype,
+                                            device=device), 1)
+    null_ml = calc_lambda(data0, 1, calc_null=True, reml=False,
+                          l_min=cfg.l_min, l_max=cfg.l_max,
+                          n_region=cfg.n_region)
+    logl_H0 = float(null_ml.logf[0])
+    p = UtXT.shape[0]
+    loglr = np.zeros(p)
+    B = _block_size(cfg, device, p, n_axis=n)
+    for s in range(0, p, B):
+        data = lk.build_batch_data(eval_, UtW, Uty, UtXT[s:s + B], 1)
+        res = calc_lambda(data, 1, calc_null=False, reml=False,
+                          l_min=cfg.l_min, l_max=cfg.l_max,
+                          n_region=cfg.n_region)
+        loglr[s:s + B] = res.logf.cpu().double().numpy() - logl_H0
+    return loglr
+
+
+def run_bslmm(cfg: GemmaConfig, log: RunLog | None = None,
+              device: str | torch.device = "cuda") -> dict:
+    """-bslmm 1 (MCMC), 2 (ridge/GBLUP), 3 (probit MCMC) and 4 (DAP Bayes
+    factors; with -rmin 1 -rmax 1 the MCMC instead) (gemma.cpp:2880-3083,
+    bslmm.cpp).  The chain runs on kernel K12, the Bayes factors on K13,
+    the proposal's ranking on the -lmm λ searches."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    idx = np.flatnonzero(ds.qc.indicator_snp)
+    ns_test, n = len(idx), ds.ni_test
+    with log.timer.phase("geno"):
+        Xc = _centred_genotypes(cfg, ds, idx, dtype, device)
+
+    y = ds.Y[:, 0].copy()
+    pheno_mean = float(y.mean())
+    y = y - pheno_mean
+    log.extra.append(f"estimated mean = {pheno_mean:.6g}")
+
+    # kinship: from file (-k) or centred X'X/ns (gemma.cpp:2906-2922)
+    if cfg.file_kin:
+        with log.timer.phase("kread"):
+            K = center_matrix(torch.as_tensor(
+                read_kinship(cfg.file_kin, ds.indicator_idv, ids=ds.ids,
+                             k_mode=cfg.k_mode), dtype=dtype, device=device))
+    else:
+        K = (Xc.T @ Xc) / ns_test
+    with log.timer.phase("eigen"):
+        eval_, U, trace_G = eigh_zeroed(K)
+    del K
+    yd = torch.as_tensor(y, dtype=dtype, device=device)
+    UtW = U.T @ torch.ones((n, 1), dtype=dtype, device=device)
+    Uty = U.T @ yd
+    nf = fit_null(eval_, UtW, Uty, trace_G, 1, l_min=cfg.l_min,
+                  l_max=cfg.l_max, n_region=cfg.n_region)
+    log.null_model = dict(
+        logl_remle_H0=float(nf.logl_remle), logl_mle_H0=float(nf.logl_mle),
+        pve_null=float(nf.pve), pve_se_null=float(nf.pve_se),
+        vg_remle_null=float(nf.vg_remle), ve_remle_null=float(nf.ve_remle),
+        beta_remle_null=nf.beta_remle.cpu().double().numpy().tolist(),
+        se_beta_remle_null=nf.se_beta_remle.cpu().double().numpy().tolist())
+    with log.timer.phase("utx"):
+        UtXT = Xc @ U                                   # (p, n)
+    del Xc
+    ensure_outdir(cfg.path_out)
+    rows = snp_rows_from_table(ds.geno.snps, ds.qc, idx)
+    out = dict(dataset=ds, eval=eval_, U=U, Uty=Uty, UtXT=UtXT, null=nf)
+
+    # -bslmm 4 with rho fixed at 1 runs plain BVSR MCMC instead of the DAP
+    # grid (gemma.cpp:2997-3010)
+    if cfg.a_mode == 14 and not (cfg.rho_min == 1 and cfg.rho_max == 1):
+        h_min = 0.0 if cfg.h_min == -1 else cfg.h_min
+        h_max = 1.0 if cfg.h_max == -1 else cfg.h_max
+        if h_max >= 1.0:
+            # the grid's sigma_a2 = h rho / ((1 - h) 10) is undefined at h
+            # = 1; the reference raises ZeroDivisionError there (ROADMAP
+            # §C13)
+            raise ValueError("-bslmm 4 needs -hmax below 1 (the default 1 "
+                             "puts h = 1 on the grid, where sigma_a2 and "
+                             "sigma_b2 divide by 1 - h = 0)")
+        grid = bslmmdap.hyper_grid(h_min, h_max, cfg.h_ngrid, cfg.rho_min,
+                                   cfg.rho_max, cfg.rho_ngrid,
+                                   float(trace_G))
+        with log.timer.phase("opt"):
+            BF = bslmmdap.dap_calc_bf(UtXT, Uty, eval_, grid)
+        with log.timer.phase("write"):
+            bslmmdap.write_hyp_bf(cfg.out_prefix(), grid, BF, rows)
+        log.summary["number of analyzed SNPs/var"] = ns_test
+        log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+        return dict(out, BF=BF, grid=grid)
+
+    if cfg.a_mode == 12:   # ridge / GBLUP
+        alpha, u_rot = bslmm.ridge_gblup(UtXT, Uty, eval_, nf.l_remle)
+        bv = (U @ u_rot).cpu().double().numpy()
+        alpha = alpha.cpu().double().numpy()
+        write_bslmm_param(f"{cfg.out_prefix()}.param.txt", rows, alpha,
+                          np.zeros(ns_test), np.zeros(ns_test))
+        write_bslmm_bv(f"{cfg.out_prefix()}.bv.txt", bv, ds.indicator_idv)
+        log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+        return dict(out, alpha=alpha, bv=bv)
+
+    with log.timer.phase("proposal"):
+        loglr = _bslmm_ranking(cfg, eval_, UtW, Uty, UtXT, dtype, device)
+    order = np.argsort(-loglr, kind="stable")     # rank → original row
+    UtXT_sorted = UtXT[torch.as_tensor(order, device=device)]
+
+    st = bslmm.BslmmSettings(
+        ns_test=ns_test, ni_test=n, s_min=cfg.s_min, s_max=cfg.s_max,
+        h_min=cfg.h_min, h_max=cfg.h_max, rho_min=cfg.rho_min,
+        rho_max=cfg.rho_max, logp_min=cfg.logp_min, logp_max=cfg.logp_max,
+        geo_mean=cfg.geo_mean, w_step=cfg.w_step, s_step=cfg.s_step,
+        r_pace=cfg.r_pace, w_pace=cfg.w_pace,
+        n_mh=1 if cfg.a_mode == 11 else cfg.n_mh, a_mode=cfg.a_mode,
+        h_scale=cfg.h_scale, rho_scale=cfg.rho_scale,
+        # -pscale input is in log10 units (gemma.cpp:1509)
+        logp_scale=(cfg.logp_scale * np.log(10.0)
+                    if cfg.logp_scale != -1 else -1.0))
+
+    # initial values (InitialMCMC, bslmm.cpp:367-448)
+    # the chi-square(1) quantile of a genome-wide 0.05: (Phi^-1(a/2))^2
+    q_genome = float(torch.special.ndtri(torch.tensor(
+        0.025 / ns_test, dtype=torch.float64)) ** 2)
+    n_gamma0 = int(np.sum(2.0 * loglr > q_genome))
+    n_gamma0 = max(n_gamma0, 10)
+    n_gamma0 = min(max(n_gamma0, st.s_min), st.s_max)
+    logp0 = float(np.log(n_gamma0 / ns_test))
+    if logp0 == 0:
+        logp0 = -1e-6
+    h0 = float(nf.pve) if float(nf.pve) != 0 else 0.1
+    tg = float(trace_G)
+    sigma_a2 = (h0 / (tg * (1 - h0) * np.exp(logp0) * ns_test) if tg != 0
+                else h0 / ((1 - h0) * np.exp(logp0) * ns_test)) or 0.025
+    Xg0 = UtXT_sorted[:n_gamma0]
+    Om = Xg0 @ Xg0.T + torch.eye(n_gamma0, dtype=dtype,
+                                 device=device) / sigma_a2
+    Xty0 = Xg0 @ Uty
+    pve_lm = float(Xty0 @ torch.linalg.solve(Om, Xty0) / (Uty @ Uty))
+    rho0 = min(pve_lm / h0, 1.0)
+    h0 = min(max(h0, st.h_min), st.h_max)
+    rho0 = min(max(rho0, st.rho_min), st.rho_max)
+    logp0 = min(max(logp0, st.logp_min), st.logp_max)
+    log.extra.append("MCMC related:")
+    log.extra.append(f"initial value of h = {h0:.6g}")
+    log.extra.append(f"initial value of rho = {rho0:.6g}")
+    log.extra.append(f"initial value of pi = {np.exp(logp0):.6g}")
+    log.extra.append(f"initial value of |gamma| = {n_gamma0}")
+
+    def gamma_positions(rec_gamma):
+        """Recorded ranks + 1 → 1-based positions among analyzed SNPs."""
+        return np.where(rec_gamma > 0, order[rec_gamma - 1] + 1, 0)
+
+    def flush_partial(state):
+        if state.w <= 0:
+            return
+        write_bslmm_hyp(f"{cfg.out_prefix()}.hyp.txt",
+                        state.rec_hyp[:state.w].cpu().numpy())
+        write_bslmm_gamma(f"{cfg.out_prefix()}.gamma.txt", gamma_positions(
+            state.rec_gamma[:state.w].cpu().numpy()), st.s_max)
+
+    probit = cfg.a_mode == 13
+    ops = bslmm.chain_operands(UtXT_sorted, Uty, eval_, tg, st.geo_mean,
+                               U=U if probit else None,
+                               y_labels=yd if probit else None)
+    with log.timer.phase("opt"):
+        final = bslmm.run_mcmc(
+            ops, st, h0, rho0, logp0, n_gamma0,
+            seed=cfg.seed if cfg.seed >= 0 else 0,
+            checkpoint_path=f"{cfg.out_prefix()}.mcmc.ckpt.npz",
+            checkpoint_every=cfg.checkpoint_every, on_segment=flush_partial)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    w = final.w
+    with log.timer.phase("write"):
+        write_bslmm_hyp(f"{cfg.out_prefix()}.hyp.txt",
+                        final.rec_hyp[:w].cpu().numpy())
+        write_bslmm_gamma(f"{cfg.out_prefix()}.gamma.txt", gamma_positions(
+            final.rec_gamma[:w].cpu().numpy()), st.s_max)
+        # posterior means (bslmm.cpp:1170-1183)
+        alpha = (UtXT @ (final.acc_alpha / w).to(dtype)).cpu().double(
+            ).numpy() / ns_test
+        beta_sum = final.acc_beta.cpu().numpy()       # indexed by rank
+        beta_cnt = final.acc_betacnt.cpu().numpy()
+        beta_mean = np.zeros(ns_test)
+        gamma_freq = np.zeros(ns_test)
+        beta_mean[order] = np.where(beta_cnt > 0,
+                                    beta_sum / np.maximum(beta_cnt, 1), 0.0)
+        gamma_freq[order] = beta_cnt / w
+        write_bslmm_param(f"{cfg.out_prefix()}.param.txt", rows, alpha,
+                          beta_mean, gamma_freq)
+        bv = (U @ (final.acc_Utu / w).to(dtype)).cpu().double().numpy()
+        write_bslmm_bv(f"{cfg.out_prefix()}.bv.txt", bv, ds.indicator_idv)
+
+    total_mh = (st.w_step + st.s_step) * st.n_mh
+    log.extra.append(f"random seed = {cfg.seed}")
+    log.extra.append(f"acceptance ratio = {final.n_accept / total_mh:.6g}")
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.summary["number of total SNPs/var"] = ds.geno.n_snps
+    log.summary["number of analyzed SNPs/var"] = ns_test
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return dict(out, state=final, order=order, loglr=loglr, ops=ops,
+                settings=st, alpha=alpha, beta=beta_mean,
+                gamma=gamma_freq, bv=bv,
+                chain_seconds=log.timer.times.get("opt", 0.0),
+                init=dict(h=h0, rho=rho0, logp=logp0, n_gamma=n_gamma0))
+
+
+def run_bslmmdap_em(cfg: GemmaConfig, log: RunLog | None = None,
+                    device: str | torch.device = "cuda") -> tuple:
+    """-bslmm 5: the DAP hyper-parameter EM from -hyp/-bf files, with
+    -cat annotations (gemma.cpp:3085-3136); host numpy, as the
+    reference."""
+    log = log or RunLog(argv=["gemma_torch"], device=torch.device(device))
+    sa2, sb2, wab = bslmmdap.read_hyp(cfg.file_hyp)
+    rs_list, blocks = bslmmdap.read_bf(cfg.file_bf)
+    Ac = Ad = n_levels = None
+    if cfg.file_cat:
+        # annotation-dependent priors via logistic regression
+        # (gemma.cpp:3103-3109)
+        Ac, Ad, n_levels = bslmmdap.read_dap_annotations(cfg.file_cat,
+                                                         rs_list)
+        log.summary["number of continuous annotations"] = \
+            0 if Ac is None else Ac.shape[1]
+        log.summary["number of discrete annotations"] = \
+            0 if Ad is None else Ad.shape[1]
+    with log.timer.phase("opt"):
+        Hyper, pip, coef = bslmmdap.dap_estimate_hyper(
+            sa2, sb2, wab, blocks, rs_list, Ac=Ac, Ad=Ad, n_levels=n_levels)
+    ensure_outdir(cfg.path_out)
+    bslmmdap.write_dap_result(cfg.out_prefix(), rs_list, Hyper, pip, coef)
+    log.summary["number of analyzed SNPs/var"] = len(rs_list)
+    log.summary["grid size for hyperparameters"] = len(wab)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return Hyper, pip, coef
+
+
+# ---------------------------------------------------------------------------
+# -predict
+
+def _write_prdt(path: str, keep: np.ndarray, values: np.ndarray,
+                rows: bool) -> None:
+    """prefix.prdt.txt: NA where `keep` is False, else the next value (a
+    row of tab-ended values with `rows`)."""
+    with open(path, "w") as fh:
+        ci = 0
+        for k in keep:
+            if not k:
+                fh.write("NA\n")
+            elif rows:
+                fh.write("\t".join(f"{v:.6g}" for v in values[ci]) + "\t\n")
+                ci += 1
+            else:
+                fh.write(f"{values[ci]:.6g}\n")
+                ci += 1
+
+
+def run_predict(cfg: GemmaConfig, log: RunLog | None = None,
+                device: str | torch.device = "cuda") -> np.ndarray:
+    """-predict 1/2: phenotypes of the individuals without one, from
+    -epm effects (and -ebv breeding values with -k), on the probit scale
+    in mode 42 (gemma.cpp:1661-1730, prdt.cpp)."""
+    device = torch.device(device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg, need_qc=False)
+    pheno_mean = cfg.pheno_mean
+    if cfg.file_emu:
+        # -emu: the estimated mean from a previous run's .log.txt
+        # (ReadFile_log, gemma_io.cpp:239-276)
+        with open(cfg.file_emu) as fh:
+            for line in fh:
+                toks = line.replace(",", " ").split()
+                if (len(toks) >= 5 and toks[1] == "estimated"
+                        and toks[2] == "mean" and toks[3] == "="):
+                    pheno_mean = float(toks[4])
+                    break
+
+    test = ~ds.indicator_idv
+    y_prdt = np.zeros(int(test.sum()))
+    with log.timer.phase("opt"):
+        if cfg.file_kin and cfg.file_ebv:
+            bv, ind_bv = read_gxe(cfg.file_ebv)
+            # kinship over ALL individuals (indicator_all,
+            # gemma.cpp:1680-1692)
+            G = read_kinship(cfg.file_kin, np.ones(ds.ni_total, dtype=bool),
+                             ids=ds.ids, k_mode=cfg.k_mode)
+            y_prdt += predict.add_breeding_values(G, bv[ind_bv],
+                                                  ds.indicator_idv, device)
+        if cfg.file_epm:
+            # -en overrides the default column layout (param.cpp:671-683)
+            if cfg.est_column:
+                est_cols = tuple(cfg.est_column)
+            else:
+                est_cols = (2, 5, 6, 7) if not cfg.file_ebv else (2, 0, 6, 7)
+            effects = predict.read_est(cfg.file_epm, est_cols)
+            y_add, ns_used = predict.predict_effects_fetch(
+                ds.geno.block, list(ds.geno.snps.rs), ds.indicator_idv,
+                effects, device=device)
+            y_prdt += y_add
+            log.summary["number of analyzed SNPs/var"] = ns_used
+    y_prdt += pheno_mean
+    if cfg.a_mode == 42:
+        y_prdt = predict.probit_transform(y_prdt)
+    ensure_outdir(cfg.path_out)
+    _write_prdt(f"{cfg.out_prefix()}.prdt.txt", ~ds.indicator_idv, y_prdt,
+                rows=False)
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return y_prdt
+
+
+def run_predict43(cfg: GemmaConfig, log: RunLog | None = None,
+                  device: str | torch.device = "cuda") -> np.ndarray:
+    """-predict 3: conditional-MVN phenotype imputation from the kinship
+    matrix and a null (mv)LMM fit (gemma.cpp:1732-1897)."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg, need_geno=False)
+    d = cfg.n_ph
+    # analyzed = full phenotypes; "full" set = covariate-valid rows
+    ind_cvt = ds.indicator_cvt
+    Y_full = ds.pheno[ind_cvt]                      # NaN = to predict
+    W_full = ds.cvt_all[ind_cvt]
+    G = read_kinship(cfg.file_kin, ds.indicator_idv, ids=ds.ids,
+                     k_mode=cfg.k_mode)
+    G_full = read_kinship(cfg.file_kin, ind_cvt, ids=ds.ids,
+                          k_mode=cfg.k_mode)
+    G_full = center_matrix(torch.as_tensor(G_full, dtype=torch.float64))
+    with log.timer.phase("eigen"):
+        eval_, U, trace_G = eigh_zeroed(center_matrix(
+            torch.as_tensor(G, dtype=dtype, device=device)))
+    UtW = U.T @ torch.as_tensor(ds.W, dtype=dtype, device=device)
+    with log.timer.phase("opt"):
+        if d == 1:
+            Uty = U.T @ torch.as_tensor(ds.Y[:, 0], dtype=dtype,
+                                        device=device)
+            nf = fit_null(eval_, UtW, Uty, trace_G, ds.n_cvt,
+                          l_min=cfg.l_min, l_max=cfg.l_max,
+                          n_region=cfg.n_region)
+            vg, ve = float(nf.vg_remle), float(nf.ve_remle)
+            beta = nf.beta_remle.cpu().double().numpy()
+            out = predict.mvnorm_predict(Y_full, (W_full @ beta)[:, None],
+                                         G_full.numpy(), np.asarray(vg),
+                                         np.asarray(ve), device)
+            log.null_model = dict(vg_remle_null=vg, ve_remle_null=ve)
+        else:
+            UtY = U.T @ torch.as_tensor(ds.Y, dtype=dtype, device=device)
+            null = MvlmmNull(eval_, UtW.T.contiguous(), UtY.T.contiguous(),
+                             cfg)
+            Vg, Ve, B = (v.cpu().double().numpy() for v in
+                         (null.Vg_remle, null.Ve_remle, null.B_remle))
+            out = predict.mvnorm_predict(Y_full, W_full @ B.T,
+                                         G_full.numpy(), Vg, Ve, device)
+    ensure_outdir(cfg.path_out)
+    _write_prdt(f"{cfg.out_prefix()}.prdt.txt", ind_cvt, out, rows=True)
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = int(ind_cvt.sum())
+    log.summary["number of individuals with full phenotypes"] = ds.ni_test
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode, n_ph=d)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def batch_run(cfg: GemmaConfig, argv: list | None = None,
               device: str | None = None):
@@ -617,6 +1015,14 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
         return run_mvlmm(cfg, log, dev)
     if cfg.a_mode in (51, 52, 53, 54):
         return run_lm(cfg, log, dev)
+    if cfg.a_mode in (11, 12, 13, 14):
+        return run_bslmm(cfg, log, dev)
+    if cfg.a_mode == 15:
+        return run_bslmmdap_em(cfg, log, dev)
+    if cfg.a_mode in (41, 42):
+        return run_predict(cfg, log, dev)
+    if cfg.a_mode == 43:
+        return run_predict43(cfg, log, dev)
     else:
         for modes, entry in _NOT_PORTED.items():
             if cfg.a_mode in modes:

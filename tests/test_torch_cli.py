@@ -164,8 +164,8 @@ def test_lmm1_float32_port_within_contract(bimbam):
 @pytest.mark.parametrize("flags,entry", [
     ("-n 1 2 -lmm 1 -crt", "mvLMM -crt"),
     ("-vc 1", "variance components and summary statistics"),
-    ("-bslmm 1", "BSLMM and prediction"),
-    ("-predict 1", "BSLMM and prediction"),
+    ("-gs 1", "variance components and summary statistics"),
+    ("-calccor", "variance components and summary statistics"),
 ])
 def test_modes_outside_the_slice_raise(bimbam, flags, entry):
     td, (geno, pheno) = bimbam

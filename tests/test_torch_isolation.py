@@ -138,3 +138,30 @@ def test_mvlmm_wrappers_send_cpu_tensors_to_plain_versions(dtype):
     for f in ("p_wald", "p_lrt", "p_score"):
         assert out[f].shape == (S,)
         assert ((out[f] >= 0) & (out[f] <= 1)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bslmm_wrappers_send_cpu_tensors_to_plain_versions(dtype):
+    """K12's and K13's wrappers on CPU tensors, float32 and float64
+    operands: plain versions only, no kernel built or launched; the
+    chain's state is float64 whatever the operands."""
+    import math
+    import numpy as np
+    from gemma_torch import kernels
+    from gemma_torch.models import bslmm, bslmmdap
+    rng = np.random.default_rng(2)
+    n, p = 30, 12
+    ev = torch.as_tensor(np.sort(rng.uniform(0, 2, n)), dtype=dtype)
+    UtXT = torch.as_tensor(rng.normal(size=(p, n)), dtype=dtype)
+    Uty = torch.as_tensor(rng.normal(size=n), dtype=dtype)
+    st = bslmm.BslmmSettings(ns_test=p, ni_test=n, s_max=5, w_step=2,
+                             s_step=6, r_pace=2)
+    ops = bslmm.chain_operands(UtXT, Uty, ev, float(ev.mean()), st.geo_mean)
+    kernels.reset_launches()
+    s0 = bslmm.init_state(ops, st, 0.4, 0.6, math.log(2 / p), 2, 1)
+    out = bslmm.bslmm_chain(ops, st, s0, 8, 1)
+    grid = bslmmdap.hyper_grid(0.1, 0.9, 2, 0.2, 0.8, 2, float(ev.mean()))
+    bf = bslmmdap.dap_calc_bf(UtXT, Uty, ev, grid)
+    assert all(k.launches == 0 for k in kernels.ALL)
+    assert out.t == 8 and out.w == 3 and out.alpha.dtype == torch.float64
+    assert bf.shape == (p, 4) and np.isfinite(bf).all()
