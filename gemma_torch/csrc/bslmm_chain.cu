@@ -97,7 +97,7 @@ struct BsShared {
 
 template <typename T>
 struct BsChain {
-  int n, p, s_max, s_min, n_mh, a_mode, w_step, r_pace;
+  int n, p, s_max, s_min, n_mh, a_mode, w_step, r_pace, n_rec;
   PhiloxKey key;
   const double* cfg;
   const T* UtXT;
@@ -563,8 +563,9 @@ bslmm_chain_kernel(int t0, int t1, BsChain<T> C, double* scal, int* ints,
       sh.mean_z = __dadd_rn(
           sh.mean_z, __dmul_rn(philox_normal(C.key, t, P_MZ, 0, 0),
                                sqrt(1.0 / n)));
-    // record every r_pace steps after burn-in (bslmm.cpp:1110-1149)
-    if (t >= C.w_step && t % C.r_pace == 0) {
+    // record every r_pace steps after burn-in (bslmm.cpp:1110-1149), and
+    // never past the n_rec rows of the buffers
+    if (t >= C.w_step && t % C.r_pace == 0 && sh.w < C.n_rec) {
       const double* cs = C.slot[sh.cur];
       const int ng = sh.ng, w = sh.w;
       for (int i = tid; i < n; i += BS_THREADS) {
@@ -630,9 +631,9 @@ static int bslmm_chain_run(int t0, int t1, int n, int p, int s_max, int s_min,
                            void* acc_Utu, void* acc_beta, void* acc_betacnt,
                            void* rec_hyp, void* rec_gamma, int n_rec,
                            void* work, void* stream) {
-  (void)n_rec;
   if (s_max > BS_MAX_S) return (int)cudaErrorInvalidValue;
   BsChain<T> C;
+  C.n_rec = n_rec;
   C.n = n;
   C.p = p;
   C.s_max = s_max;

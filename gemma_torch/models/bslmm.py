@@ -98,12 +98,15 @@ class BslmmSettings:
                 (self.rho_max - self.rho_min) * self.rho_scale,
                 min(0.1, (self.logp_max - self.logp_min) * self.logp_scale))
 
-    def n_records(self) -> int:
-        """Iterations t in [w_step, w_step + s_step) with t % r_pace == 0:
-        the rows the chain records."""
-        total = self.w_step + self.s_step
+    def records_before(self, t: int) -> int:
+        """Iterations t' in [w_step, t) with t' % r_pace == 0: the rows
+        the chain has recorded before iteration t."""
         first = -(-self.w_step // self.r_pace) * self.r_pace
-        return 0 if first >= total else (total - 1 - first) // self.r_pace + 1
+        return 0 if first >= t else (t - 1 - first) // self.r_pace + 1
+
+    def n_records(self) -> int:
+        """The rows the whole chain records."""
+        return self.records_before(self.w_step + self.s_step)
 
 
 def calc_p_gamma(ns_test: int, geo_mean: float) -> np.ndarray:
@@ -429,7 +432,8 @@ class _Chain:
             s["mean_z"] = s["mean_z"] + philox.normal(
                 self.key, t, P_MZ, 0) * math.sqrt(1.0 / self.n)
         # record every r_pace steps after burn-in (bslmm.cpp:1110-1149)
-        if t >= st.w_step and t % st.r_pace == 0:
+        if t >= st.w_step and t % st.r_pace == 0 and \
+                s["w"] < s["rec_hyp"].shape[0]:
             w, ng = s["w"], s["n_gamma"]
             dev = s["alpha"].device
             s["rec_hyp"][w] = torch.tensor(
@@ -465,9 +469,27 @@ def _frozen(s: dict, t: int, st: BslmmSettings, p: int) -> ChainState:
     return ChainState(**{f: out[f] for f in ChainState._fields})
 
 
+def check_records(st: BslmmSettings, state: ChainState, t1: int) -> None:
+    """Raise unless [state.t, t1) lies within the chain and the state's
+    record rows and count are the ones these settings give, so that every
+    row the segment records lands inside its buffers."""
+    n_rec = st.n_records()
+    if not state.t <= t1 <= st.w_step + st.s_step:
+        raise ValueError(f"BSLMM chain: segment [{state.t}, {t1}) outside "
+                         f"the chain's {st.w_step + st.s_step} iterations")
+    if (tuple(state.rec_hyp.shape) != (n_rec, 6)
+            or tuple(state.rec_gamma.shape) != (n_rec, st.s_max)
+            or state.w != st.records_before(state.t)):
+        raise ValueError(
+            f"BSLMM chain: the state holds {state.rec_hyp.shape[0]} record "
+            f"rows with {state.w} written at t = {state.t}; these settings "
+            f"give {n_rec} rows with {st.records_before(state.t)} written")
+
+
 def bslmm_chain_plain(ops: ChainOperands, st: BslmmSettings,
                       state: ChainState, t1: int, seed: int) -> ChainState:
     """PyTorch version of K12: iterations [state.t, t1) one at a time."""
+    check_records(st, state, t1)
     C = _Chain(ops, st, seed)
     s = _live(state)
     for t in range(state.t, t1):
@@ -498,6 +520,7 @@ def bslmm_chain_cuda(ops: ChainOperands, st: BslmmSettings,
     kern = kernels.variant(kernels.BSLMM_CHAIN, kernels.BSLMM_CHAIN_F64, dt)
     p, n = ops.UtXT.shape
     kernels.check_bslmm_shape(st.s_max)
+    check_records(st, state, t1)
     co = kernels.check_operand
     co(ops.UtXT, "UtXT", dt, (p, n))
     co(ops.eval, "eval", dt, (n,))
@@ -574,26 +597,33 @@ def init_state(ops: ChainOperands, st: BslmmSettings, h0: float, rho0: float,
     return _frozen(s, 0, st, p)
 
 
-def save_checkpoint(path: str, state: ChainState, total: int,
+def chain_id(ops: ChainOperands, st: BslmmSettings) -> np.ndarray:
+    """What a checkpoint must match to be resumed: every setting (the
+    burn-in/sampling split and r_pace size the record buffers), n and p."""
+    return np.array([*dataclasses.astuple(st), *ops.UtXT.shape],
+                    dtype=np.float64)
+
+
+def save_checkpoint(path: str, state: ChainState, chain: np.ndarray,
                     seed: int) -> None:
     payload = {f: (getattr(state, f).cpu().numpy() if f in _VECTORS
                    else np.asarray(getattr(state, f)))
                for f in ChainState._fields}
-    payload.update(total=total, seed=seed)
+    payload.update(chain=chain, seed=seed)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **payload)
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, total: int, seed: int,
+def load_checkpoint(path: str, chain: np.ndarray, total: int, seed: int,
                     device) -> ChainState | None:
-    """The state saved at `path` if it belongs to this chain (same
-    length and seed) and is unfinished; else None."""
+    """The state saved at `path` if it belongs to this chain (the same
+    chain_id and seed) and is unfinished; else None."""
     if not os.path.exists(path):
         return None
     ck = np.load(path)
-    if int(ck["total"]) != total or int(ck["seed"]) != seed or \
-            int(ck["t"]) >= total:
+    if "chain" not in ck.files or not np.array_equal(ck["chain"], chain) \
+            or int(ck["seed"]) != seed or int(ck["t"]) >= total:
         return None
     vals = {}
     for f in ChainState._fields:
@@ -621,9 +651,10 @@ def run_mcmc(ops: ChainOperands, st: BslmmSettings, h0: float, rho0: float,
     The port's .npz holds its own state, not the reference's."""
     total = st.w_step + st.s_step
     ckpt = bool(checkpoint_path) and checkpoint_every > 0
+    cid = chain_id(ops, st)
     state = None
     if ckpt:
-        state = load_checkpoint(checkpoint_path, total, seed,
+        state = load_checkpoint(checkpoint_path, cid, total, seed,
                                 ops.UtXT.device)
     if state is None:
         state = init_state(ops, st, h0, rho0, logp0, n_gamma0, seed)
@@ -634,7 +665,7 @@ def run_mcmc(ops: ChainOperands, st: BslmmSettings, h0: float, rho0: float,
                        * checkpoint_every)
         state = bslmm_chain(ops, st, state, stop, seed)
         if ckpt and (stop % checkpoint_every == 0 or stop == total):
-            save_checkpoint(checkpoint_path, state, total, seed)
+            save_checkpoint(checkpoint_path, state, cid, seed)
             if on_segment is not None:
                 on_segment(state)
     return state

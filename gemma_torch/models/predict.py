@@ -49,7 +49,7 @@ def read_est(path: str, est_column=(2, 5, 6, 7)) -> dict:
 
 
 def predict_effects(X_raw: np.ndarray, rs_names, indicator_idv: np.ndarray,
-                    effects: dict, device="cpu") -> tuple:
+                    effects: dict, device="cuda") -> tuple:
     """Sum of genotype-effect products for test individuals.
 
     X_raw: (p, ni_total) raw dosages (NaN missing); indicator_idv True
@@ -85,7 +85,7 @@ def predict_effects(X_raw: np.ndarray, rs_names, indicator_idv: np.ndarray,
 
 def predict_effects_fetch(fetch, rs_names, indicator_idv: np.ndarray,
                           effects: dict, block: int = 4096,
-                          device="cpu") -> tuple:
+                          device="cuda") -> tuple:
     """Streaming predict_effects: `fetch(sel)` returns the raw dosage
     rows for (sorted) indices sel, so the (p, n) matrix never
     materialises — the reference streams the genotype file the same
@@ -109,7 +109,7 @@ def predict_effects_fetch(fetch, rs_names, indicator_idv: np.ndarray,
 
 def add_breeding_values(G_full: np.ndarray, u_hat: np.ndarray,
                         indicator_idv: np.ndarray,
-                        device="cpu") -> np.ndarray:
+                        device="cuda") -> np.ndarray:
     """u_test = K_fo K_oo^+ u_hat with K centered by the training
     indicator (AddBV, prdt.cpp:133-205)."""
     G_full = torch.as_tensor(G_full, dtype=F64, device=device)
@@ -139,7 +139,7 @@ def probit_transform(y: np.ndarray) -> np.ndarray:
 
 def mvnorm_predict(Y_full: np.ndarray, Y_hat: np.ndarray,
                    G_full: np.ndarray, Vg: np.ndarray,
-                   Ve: np.ndarray, device="cpu") -> np.ndarray:
+                   Ve: np.ndarray, device="cuda") -> np.ndarray:
     """Conditional-MVN imputation of missing phenotypes (mode 43).
 
     Y_full: (m, d) phenotypes over covariate-valid individuals, NaN

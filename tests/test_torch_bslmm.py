@@ -20,6 +20,7 @@ Tolerances:
     the uninterrupted chain bit for bit.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -219,7 +220,7 @@ def test_predict_effects_matches_reference():
     rs = [f"rs{i}" for i in range(p)]
     effects = {f"rs{i}": rng.normal() for i in range(0, p, 2)}
     a_r, k_r = rpred.predict_effects(X, rs, train, effects)
-    a_p, k_p = ppred.predict_effects(X, rs, train, effects)
+    a_p, k_p = ppred.predict_effects(X, rs, train, effects, device="cpu")
     assert k_p == k_r and _rel(a_p, a_r) <= 1e-10
 
 
@@ -232,7 +233,7 @@ def test_add_breeding_values_matches_reference():
     train[rng.choice(n, 30, replace=False)] = True
     u_hat = rng.normal(size=30)
     want = rpred.add_breeding_values(G, u_hat, train)
-    got = ppred.add_breeding_values(G, u_hat, train)
+    got = ppred.add_breeding_values(G, u_hat, train, device="cpu")
     assert _rel(got, want) <= 1e-10
 
 
@@ -251,7 +252,7 @@ def test_mvnorm_predict_matches_reference(d):
         Vg = np.array([[1.0, 0.3], [0.3, 0.8]])
         Ve = np.array([[0.5, 0.1], [0.1, 0.6]])
     want = rpred.mvnorm_predict(Y, Y_hat, G, Vg, Ve)
-    got = ppred.mvnorm_predict(Y, Y_hat, G, Vg, Ve)
+    got = ppred.mvnorm_predict(Y, Y_hat, G, Vg, Ve, device="cpu")
     assert _rel(got, want) <= 1e-10
     np.testing.assert_array_equal(got[~np.isnan(Y)], Y[~np.isnan(Y)])
 
@@ -416,10 +417,7 @@ def _assert_same_state(a, b):
             assert va == vb, f
 
 
-def test_checkpoint_and_resume_are_bit_identical(tmp_path, monkeypatch):
-    """A chain checkpointed every 137 iterations equals the uninterrupted
-    one; a run killed inside its second save resumes from the first and
-    ends in the same state."""
+def _ckpt_chain(w_step=200, s_step=400, r_pace=10):
     rng = np.random.default_rng(0)
     n, p = 60, 40
     X = rng.binomial(2, 0.3, size=(p, n)).astype(np.float64)
@@ -427,10 +425,17 @@ def test_checkpoint_and_resume_are_bit_identical(tmp_path, monkeypatch):
     y = Xc[2] * 0.9 + rng.normal(size=n)
     y -= y.mean()
     ev, U, tr, UtX, Uty = _eigen(Xc, y, Xc.T @ Xc / p)
-    st = pb.BslmmSettings(ns_test=p, ni_test=n, w_step=200, s_step=400,
-                          r_pace=10, s_max=20, a_mode=11)
+    st = pb.BslmmSettings(ns_test=p, ni_test=n, w_step=w_step, s_step=s_step,
+                          r_pace=r_pace, s_max=20, a_mode=11)
     ops = pb.chain_operands(_t(UtX.T), _t(Uty), _t(ev), tr, st.geo_mean)
-    args = (ops, st, 0.4, 0.8, float(np.log(3 / p)), 3)
+    return ops, st, 0.4, 0.8, float(np.log(3 / p)), 3
+
+
+def test_checkpoint_and_resume_are_bit_identical(tmp_path, monkeypatch):
+    """A chain checkpointed every 137 iterations equals the uninterrupted
+    one; a run killed inside its second save resumes from the first and
+    ends in the same state."""
+    args = _ckpt_chain()
     ref = pb.run_mcmc(*args, seed=7)
 
     ck = str(tmp_path / "chain.ckpt.npz")
@@ -460,3 +465,35 @@ def test_checkpoint_and_resume_are_bit_identical(tmp_path, monkeypatch):
     resumed = pb.run_mcmc(*args, seed=7, checkpoint_path=ck2,
                           checkpoint_every=137)
     _assert_same_state(ref, resumed)
+
+
+@pytest.mark.parametrize("split", [(300, 300, 10), (200, 400, 5)])
+def test_checkpoint_of_another_split_is_not_resumed(tmp_path, split):
+    """A checkpoint of the same length and seed but another burn-in split
+    or r_pace (record buffers of another size) is not resumed: the chain
+    starts afresh and equals an uninterrupted run of the new settings."""
+    # an unfinished checkpoint of -w 200 -s 400 -rpace 10 (40 rows), t = 274
+    ck = str(tmp_path / "chain.ckpt.npz")
+    ops, st, *init = _ckpt_chain()
+    part = pb.bslmm_chain(ops, st, pb.init_state(ops, st, *init, 7), 274, 7)
+    pb.save_checkpoint(ck, part, pb.chain_id(ops, st), 7)
+    new = _ckpt_chain(*split)
+    want = pb.run_mcmc(*new, seed=7)
+    got = pb.run_mcmc(*new, seed=7, checkpoint_path=ck, checkpoint_every=137)
+    _assert_same_state(want, got)
+    assert got.w == new[1].n_records() == got.rec_hyp.shape[0]
+
+
+def test_chain_refuses_a_state_whose_records_do_not_fit():
+    """K12's wrapper and its plain version refuse a state whose record
+    rows or count are not the ones the settings give."""
+    ops, st, *init = _ckpt_chain()
+    s0 = pb.init_state(ops, st, *init, 7)
+    other = dataclasses.replace(st, w_step=100, s_step=500)
+    with pytest.raises(ValueError, match="record rows"):
+        pb.bslmm_chain(ops, other, s0, 600, 7)
+    part = pb.bslmm_chain(ops, st, s0, 300, 7)
+    with pytest.raises(ValueError, match="record rows"):
+        pb.bslmm_chain(ops, st, part._replace(w=part.w + 1), 400, 7)
+    with pytest.raises(ValueError, match="outside"):
+        pb.bslmm_chain(ops, st, part, 700, 7)
