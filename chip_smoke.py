@@ -25,7 +25,9 @@
                   correlation 0.5, environmental 0.3, 8 causal SNPs):
                   `-gk`, `-lmm 1 -n 1 2` cold and warm (SNPs/s), `-lmm
                   4 -n 1 2` and `-lmm 4 -n 1 2 -gxe` in float32 and
-                  float64, `-lmm 1 -n 1 2 3 4 5` on the first 1,024 SNPs;
+                  float64, `-lmm 1 -n 1 2 3 4 5` on the first 1,024 SNPs,
+                  and `-lmm 4 -n 1 2 -crt -pnr 0.9` in both precisions and
+                  `-lmm 1 -n 1 2 3 4 5 -crt -pnr 0.9` on 1,024 SNPs;
      (g) BSLMM    on the mouse genotypes, a phenotype of 10 causal SNPs
                   (25% of the variance), a polygenic part (25%) and 10%
                   NA, and its binary form: `-bslmm 1 -w 10000 -s
@@ -34,7 +36,13 @@
                   1000 -s 10000`, `-bslmm 4` in both precisions and with
                   rho fixed at 1, `-bslmm 5` from the card's Bayes
                   factors, `-predict 1/2` from the card's -bslmm 1 files
-                  and `-predict 3`.
+                  and `-predict 3`;
+     (h) VC/cor   on the mouse genotypes, a phenotype with a polygenic
+                  part (h² 0.5), an annotation over two chromosomes with
+                  positions 3 kb apart and two kinships from `-gk -snps`
+                  on the two halves of the SNPs: `-vc 1/2/3` with `-k`
+                  and with `-mk` of both, `-calccor` and `-gw`, in float32
+                  and float64.
    Every kernel's launch count is set to 0 just before each path and
    read just after; each kernel of the path must have launched.
 3. Checks the output against the port's own float64 path on the CPU on
@@ -57,7 +65,12 @@
    rel 1e-8, -bslmm 1's initial values rel 1e-4 with the same |gamma|;
    its mean pve within 0.1 of the simulated 0.5, >= 8 of the 10 causal
    SNPs among the 20 of highest inclusion, and its predictions of the
-   held-out individuals correlated >= 0.3 with their genetic values.
+   held-out individuals correlated >= 0.3 with their genetic values;
+   (f)'s -crt runs float32 against float64 within 1e-3; (h)'s float64
+   -vc estimates against the port's float64 CPU runs rel 1e-8, its
+   float32 pve within 1e-3 of float64, REML's total pve within 3 se of
+   the simulated 0.5, its float32 correlations within 1e-5 of float64
+   and -gw's equal to -calccor's.
 4. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main path's shapes (n = 1940, S = the run's
    block, c = 1, and c = 3 for K2-K7; the per-lane forms of K2-K7 at the
@@ -66,7 +79,10 @@
    protocol block, its GxE form and the five-trait block, the last at
    the float64 tolerances; K12 for 2,000 iterations from -bslmm 1's
    state in each precision and 100 of -bslmm 3's, K13 on -bslmm 4's
-   products), with the tolerances below, and times both
+   products; K14 on the lanes the -crt paths refine, at their Newton
+   optima, protocol block and five-trait block; K15 on three random
+   symmetric 8,192² matrices made on the card, K16 on the whole band of
+   phase (h)'s rows), with the tolerances below, and times both
    (CUDA events, median after warm-up, L2 flushed between runs; the
    plain mvLMM loops once, on the call compared).
 5. Prints the card's name and power limit, the kernels line and, last,
@@ -164,6 +180,18 @@ TOL = {
     "dap_bf": "|BF - BF_plain| <= 1e-6 |BF_plain|, the same finite entries",
     "dap_bf_f64": "|BF - BF_plain| <= 1e-10 |BF_plain|, the same finite "
                   "entries",
+    # float64 sums of the same operands in another order (the plain version
+    # takes every trace by batched einsum)
+    "calc_crt": "crt_a, crt_b, crt_c each: max |k - p| <= 1e-9 max |p| over "
+                "the lanes finite in both, the same finite lanes",
+    # both form the products in float64 (exact for float32 operands) and
+    # sum them in another order
+    "pair_colsum": "max |k - p| <= 1e-12 max |p|",
+    "pair_colsum_f64": "max |k - p| <= 1e-12 max |p|",
+    # float32: sums of n <= 1940 products of unit-norm rows in another
+    # order; float64 the same at float64 rounding
+    "banded_cor": "|cor - cor_plain| <= 1e-5",
+    "banded_cor_f64": "max |k - p| <= 1e-12 max |p|",
 }
 # the per-lane forms of K2-K7 (GxE, gene mode) are held to their shared
 # forms' tolerances, but for the float32 tests: at GxE's 3 covariates
@@ -189,6 +217,9 @@ BSLMM_W, BSLMM_S = 10000, 100000
 # the chain held against its plain version; K12 and the plain loop are
 # both timed on these iterations
 HOLD_ITERS = 2000
+# phase (h): variance components and correlations on the mouse genotypes;
+# K15 held on random symmetric operands at this n and stack
+VC_H2, VC_SEED, PC_N, PC_M = 0.5, 6, 8192, 3
 RESULTS = {}             # -o tag → what batch_run returned
 
 
@@ -233,11 +264,7 @@ def _synth_bslmm(td, n=MOUSE_N, p=MOUSE_P, seed=5):
     individuals NA; its binary form (above the median) for -bslmm 3; the
     first CHECK_SNPS SNPs' names.  Returns the causal SNPs, the genetic
     values and the held-out individuals."""
-    X = np.empty((p, n), np.float32)
-    for s, Xb, miss in _mouse_blocks(np.random.default_rng(0), n, p):
-        Xb = Xb.astype(np.float32)
-        Xb[miss] = np.nan
-        X[s:s + Xb.shape[0]] = Xb
+    X = _mouse_rows(n, p)
     mean = np.nanmean(X, axis=1, keepdims=True)
     X = np.where(np.isnan(X), mean, X) - mean
     rng = np.random.default_rng(seed)
@@ -260,6 +287,46 @@ def _synth_bslmm(td, n=MOUSE_N, p=MOUSE_P, seed=5):
             fh.write("".join("NA\n" if h else f"{x:.6f}\n"
                              for x, h in zip(v, held)))
     return causal, g, held
+
+
+def _mouse_rows(n=MOUSE_N, p=MOUSE_P):
+    """The mouse genotypes (replayed from _synth_mouse's stream), (p, n)
+    float32 with NaN where missing."""
+    X = np.empty((p, n), np.float32)
+    for s, Xb, miss in _mouse_blocks(np.random.default_rng(0), n, p):
+        Xb = Xb.astype(np.float32)
+        Xb[miss] = np.nan
+        X[s:s + Xb.shape[0]] = Xb
+    return X
+
+
+def _synth_vc(td, n=MOUSE_N, p=MOUSE_P, seed=VC_SEED):
+    """Phase (h)'s inputs on the mouse genotypes: an annotation over two
+    chromosomes with positions 3 kb apart (the default 1 Mb window holds
+    333 SNPs, as on a human imputed panel), a phenotype with a polygenic
+    part of h² VC_H2 (iid effects on every centred genotype, the prior of
+    GEMMA's kinship), the SNP lists of the two halves and the -mk file of
+    their kinships.  Returns the unit-normalised rows (p, n) float64 that
+    -calccor correlates."""
+    X = _mouse_rows(n, p)
+    mean = np.nanmean(X, axis=1, keepdims=True)
+    Xc = np.where(np.isnan(X), mean, X).astype(np.float64) - mean
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=p) @ Xc
+    e = rng.normal(size=n)
+    y = g / g.std() * np.sqrt(VC_H2) + e / e.std() * np.sqrt(1 - VC_H2)
+    np.savetxt(f"{td}/vc_pheno.txt", y, fmt="%.6f")
+    half = p // 2
+    with open(f"{td}/vc_anno.txt", "w") as fh:
+        fh.write("".join(f"rs{j}\t{3000 * (j % half) + 1000}\t"
+                         f"{1 + j // half}\n" for j in range(p)))
+    for i, (a, b) in enumerate(((0, half), (half, p))):
+        with open(f"{td}/vc_half{i}.snps", "w") as fh:
+            fh.write("".join(f"rs{j}\n" for j in range(a, b)))
+    with open(f"{td}/vc_mk.txt", "w") as fh:
+        fh.write(f"{td}/VK0.cXX.txt\n{td}/VK1.cXX.txt\n")
+    ss = np.einsum("ij,ij->i", Xc, Xc)
+    return Xc / np.sqrt(np.where(ss > 0, ss, 1.0))[:, None]
 
 
 def _synth_plink(td, n=PLINK_N, p=PLINK_P, n_cov=PLINK_COV, seed=1):
@@ -585,6 +652,7 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
     mvk = base + f"-k {td}/MK.cXX.txt".split()
     mvx = f"-gxe {td}/mv_env.txt".split()
     n12 = "-n 1 2".split()
+    crt = "-crt -pnr 0.9".split()
     mv32 = ("mph_em", "mph_calc_p", "mph_nr")
     mv64 = ("mph_em_f64", "mph_calc_p_f64", "mph_nr_f64")
     counts_f = {
@@ -608,7 +676,20 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
         "d5": _drive(kernels, paths, "mv_d5", [
             ("mv_lmm1_d5", mvk + f"-snps {td}/mv_1024.snps -n 1 2 3 4 5 "
              "-lmm 1 -o M5".split())], mv32),
+        # -crt on the lanes -pnr 0.9 refines (most of them); it runs in
+        # float64 whatever -precision says (ROADMAP §C18)
+        "crt": _drive(kernels, paths, "mv_crt", [
+            ("mv_crt_lmm4", mvk + n12 + crt + "-lmm 4 -o MR".split())],
+            mv64 + ("calc_crt",)),
+        "crt_f64": _drive(kernels, paths, "mv_crt_f64", [
+            ("mv_crt_lmm4_f64", mvk + n12 + crt + f64
+             + "-lmm 4 -o MRd".split())], mv64 + ("calc_crt",)),
+        "d5_crt": _drive(kernels, paths, "mv_d5_crt", [
+            ("mv_crt_lmm1_d5", mvk + f"-snps {td}/mv_1024.snps -n 1 2 3 4 "
+             "5 -lmm 1 -o M5R".split() + crt)], mv64 + ("calc_crt",)),
     }
+    if any(counts_f["crt"][k] for k in mv32):
+        raise RuntimeError("-crt launched a float32 mvLMM kernel")
     _say({"phase": "e2e_mvlmm", "paths": {
         k: v for k, v in paths.items() if k.startswith("mv_")}})
     cold, warm = (s for _, s in paths["mv_lmm1"]["secs"])
@@ -627,20 +708,30 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
     first = f"-snps {td}/mv_first.snps".split()
     _run(mvk + n12 + first + "-lmm 4 -o MC".split(), "cpu")
     _run(mvk + n12 + first + mvx + "-lmm 4 -o MXC".split(), "cpu")
+    _run(mvk + n12 + first + crt + "-lmm 4 -o MRC".split(), "cpu")
     chk_f = {"cpu_f64_seconds": time.time() - t0}
     for tag, ref_tag, tol, match in (
             ("M1", "MC", 1e-3, None), ("M4", "MC", 1e-3, None),
             ("M4d", "MC", 1e-6, 0.99), ("MX4", "MXC", 1e-3, None),
-            ("MX4d", "MXC", 1e-6, 0.99)):
+            ("MX4d", "MXC", 1e-6, 0.99), ("MRd", "MRC", 1e-6, 0.99)):
         cols = ("p_wald",) if tag == "M1" else P_COLS
         chk_f[tag] = _mv_close(RESULTS[tag], RESULTS[ref_tag], tol, 0.97,
                                cols, match=match)
-    p5 = RESULTS["M5"]["stats"]["p_wald"]
-    fin5 = float(np.isfinite(p5).mean())
-    if fin5 < 0.97 or not ((p5[np.isfinite(p5)] >= 0)
-                           & (p5[np.isfinite(p5)] <= 1)).all():
-        raise RuntimeError(f"-n 1 2 3 4 5: {fin5:.4f} finite p_wald")
-    chk_f["d5_p_wald_finite"] = fin5
+    # -crt at the default precision is the float64 run: the same p-values
+    chk_f["MR_vs_MRd_max_abs"] = max(
+        float(np.max(np.abs(RESULTS["MR"]["stats"][c]
+                            - RESULTS["MRd"]["stats"][c]))) for c in P_COLS)
+    if chk_f["MR_vs_MRd_max_abs"] > 1e-12:
+        raise RuntimeError("-crt auto vs float64: "
+                           f"{chk_f['MR_vs_MRd_max_abs']}")
+    for tag in ("M5", "M5R"):
+        p5 = RESULTS[tag]["stats"]["p_wald"]
+        fin5 = float(np.isfinite(p5).mean())
+        if fin5 < 0.97 or not ((p5[np.isfinite(p5)] >= 0)
+                               & (p5[np.isfinite(p5)] <= 1)).all():
+            raise RuntimeError(f"-n 1 2 3 4 5 ({tag}): {fin5:.4f} finite "
+                               "p_wald")
+        chk_f[f"{tag}_p_wald_finite"] = fin5
     chk_f["phase_f_seconds"] = time.time() - t_f
     _say({"phase": "check_mvlmm", **chk_f})
     # the kernels' operands: the protocol block and the -n 1 2 3 4 5 block
@@ -648,10 +739,32 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
     ops = _mv_operands(mvk + n12 + mvx + ["-lmm", "1"],
                        RESULTS["M1"]["snp_indices"], dev,
                        (torch.float32, torch.float64))
-    ops["d5"] = _mv_operands(
+    d5 = _mv_operands(
         mvk + f"-snps {td}/mv_1024.snps -n 1 2 3 4 5 -lmm 1".split(),
-        RESULTS["M5"]["snp_indices"], dev, (torch.float32,))[torch.float32]
+        RESULTS["M5"]["snp_indices"], dev, (torch.float32, torch.float64))
+    ops["d5"], ops["d5_f64"] = d5[torch.float32], d5[torch.float64]
     return counts_f, ops
+
+
+def _first_stage(o, reml):
+    """The -lmm 4 path's first p-values on a protocol block (before the
+    -pnr refinement; models/mvlmm.py mvlmm_assoc): p_wald of the staged
+    REML fit, or p_lrt of the ML fit."""
+    import torch
+    from gemma_torch.config import GemmaConfig
+    from gemma_torch.models import mvlmm_core as mvc
+    from gemma_torch.models.mvlmm import _em_fit, _Iters
+    it = _Iters(GemmaConfig())
+    ev, X0, Y, R, nul = o["ev"], o["X0"], o["Y"], o["R1"], o["null"]
+    speed = ev.dtype == torch.float32
+    Vs, Es, B0 = nul.Vg_start[None], nul.Ve_start[None], nul.B_start[None]
+    Vg, Ve, logl, _ = _em_fit(reml, it, ev, X0, Y, R, Vs, Es, B0,
+                              staged=reml or speed, switch=speed)
+    if reml:
+        return mvc.mph_calc_p(ev, X0, Y, R, Vg, Ve).p
+    l0 = torch.tensor([nul.logl_mle_H0], dtype=torch.float64,
+                      device=ev.device)
+    return mvc.mph_calc_p(ev, X0, Y, R, Vg, Ve, logl, l0).p_lrt
 
 
 def _timed(fn):
@@ -809,6 +922,223 @@ def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
         sfx="", tight=True, staged=True, cap=mvc.nr_switch_point(1000)))
     for blk in blocks:
         _hold_mv_block(blk, record, check, amax)
+
+
+def _crt_work(S, d, c, n, isz):
+    """(bytes, float64 operations) K14 needs for S lanes: the lanes' rows
+    and parameters read once and the factors written; per individual the
+    staged Hi, R, P, Z P, F and the pass's sums, per lane the Gram blocks,
+    Y = Qi L' Z and the pair traces (csrc/calc_crt.cu)."""
+    vs, cd = d * (d + 1) // 2, c * d
+    per_k = (3 * d ** 3 + 2 * c * d * d + 6 * d ** 3 + 2 * vs * d * d * 4
+             + 3 * vs * vs * 3 + 2 * vs * d * cd * 5 + 4 * d * c * (c + 1))
+    per_lane = (2 * vs * cd * d * cd * (2 * d + 2)
+                + vs * (vs + 1) // 2 * (8 * d * cd + 8 * d * d + 24))
+    nbytes = S * (isz * n + 8 * (2 * d * d + 4 * vs * vs + 3)) \
+        + isz * (n + (c - 1) * n)
+    return nbytes, S * (n * per_k + per_lane)
+
+
+def _hold_crt(mv_ops, counts_f, record, check):
+    """K14 against its plain version on the card, on the lanes the -crt
+    paths refine and at their Newton optima, as the path reaches them
+    (models/mvlmm.py refine): the protocol block's REML lanes with p_wald
+    < 0.9 (the -lmm 4 -crt paths) and the -n 1 2 3 4 5 block's (1,024
+    SNPs, d = 5), float64 operands as -crt runs."""
+    import torch
+    from gemma_torch.config import GemmaConfig
+    from gemma_torch.models import mvlmm_core as mvc
+    from gemma_torch.models.mvlmm import _Iters
+    it = _Iters(GemmaConfig())
+    for o, cnt, form in ((mv_ops[torch.float64], counts_f["crt"], None),
+                         (mv_ops["d5_f64"], counts_f["d5_crt"], "d5")):
+        ev, X0, Y, R, nul = o["ev"], o["X0"], o["Y"], o["R1"], o["null"]
+        Vs, Es, B0 = (nul.Vg_start[None], nul.Ve_start[None],
+                      nul.B_start[None])
+        idx = torch.nonzero(_first_stage(o, True) < 0.9).flatten()
+        Ri = R[idx].contiguous()
+        em = mvc.mph_em(True, it.em_iter, it.em_prec, ev, X0, Y, Ri, Vs, Es,
+                        B0)
+        Vg2, Ve2, _, Hvar = mvc.mph_nr(True, it.nr_iter, it.nr_prec, ev, X0,
+                                       Y, Ri, em.Vg, em.Ve)
+        a = (ev, X0, Ri, Vg2, Ve2, Hvar)
+        kk = mvc.calc_crt_cuda(*a)
+        pp, pms = _timed(lambda: mvc.calc_crt_plain(*a))
+        err, same = 0.0, True
+        for x, y in zip(kk, pp):
+            ok = torch.isfinite(x) & torch.isfinite(y)
+            same = same and bool((torch.isfinite(x) == torch.isfinite(y))
+                                 .all())
+            err = max(err, float((x[ok] - y[ok]).abs().max()
+                                 / y[ok].abs().max()))
+        ms = _time_ms(lambda: mvc.calc_crt_cuda(*a), 3)
+        S, n, d = Ri.shape[0], ev.shape[0], Y.shape[0]
+        c = X0.shape[0] + 1
+        check("calc_crt", err <= 1e-9 and same,
+              {"block": form or "snp", "S": S, "n": n, "d": d, "c": c,
+               "max_rel_err": err, "same_finite": same,
+               "finite_lanes": float(torch.isfinite(kk[0]).double().mean()),
+               "ms": ms, "plain_ms": pms})
+        nbytes, nops = _crt_work(S, d, c, n, ev.element_size())
+        record("calc_crt", err, ms, pms, nbytes, nops,
+               peak=PEAK_F64_PER_S, launches=cnt, form=form,
+               tol=TOL["calc_crt"] if form else None)
+
+
+def _drive_vc(kernels, paths, td, geno, f64):
+    """Phase (h): -vc 1/2/3 with -k and -mk and -calccor/-gw on the mouse
+    genotypes, in both precisions on the card, and their checks: float64
+    against the port's float64 CPU runs, float32 against float64, REML's
+    total pve against the simulated h².  Returns the paths' launch counts
+    and the normalised rows."""
+    t_h = time.time()
+    Xn = _synth_vc(td)
+    _say({"phase": "data_vc", "seconds": time.time() - t_h})
+    vp = f"-g {geno} -p {td}/vc_pheno.txt -outdir {td} -no-check".split()
+    kins = {"k": f"-k {td}/VK0.cXX.txt".split(),
+            "mk": f"-mk {td}/vc_mk.txt".split()}
+    cc = f"-a {td}/vc_anno.txt".split()
+    counts = {
+        "gk": _drive(kernels, paths, "vc_gk", [
+            (f"vc_gk{i}", vp + f"-gk 1 -snps {td}/vc_half{i}.snps "
+             f"-o VK{i}".split()) for i in (0, 1)], ("geno_prologue",)),
+        "vc": _drive(kernels, paths, "vc", [
+            (f"vc{m}_{k}", vp + kv + f"-vc {m} -o V{m}{k}".split())
+            for m in (1, 2, 3) for k, kv in kins.items()], ("pair_colsum",),
+            keep=True),
+        "vc_f64": _drive(kernels, paths, "vc_f64", [
+            (f"vc{m}_{k}_f64", vp + kv + f64 + f"-vc {m} -o V{m}{k}d".split())
+            for m in (1, 2, 3) for k, kv in kins.items()],
+            ("pair_colsum_f64",), keep=True),
+        "cor": _drive(kernels, paths, "calccor", [
+            ("calccor", vp + cc + "-calccor -o VC".split()),
+            ("gw", vp + cc + "-gw -o VG".split())], ("banded_cor",),
+            keep=True),
+        "cor_f64": _drive(kernels, paths, "calccor_f64", [
+            ("calccor_f64", vp + cc + f64 + "-calccor -o VCd".split()),
+            ("gw_f64", vp + cc + f64 + "-gw -o VGd".split())],
+            ("banded_cor_f64",), keep=True),
+    }
+    _say({"phase": "e2e_vc", "paths": {
+        k: v for k, v in paths.items() if k.startswith(("vc", "calccor"))}})
+    t0 = time.time()
+    for m in (1, 2, 3):
+        for k, kv in kins.items():
+            _run(vp + kv + f"-vc {m} -o C{m}{k}".split(), "cpu", keep=True)
+    R = RESULTS
+    chk = {"cpu_f64_seconds": time.time() - t0}
+    failed = []
+    fields = ("pve", "se_pve", "sigma2", "se_sigma2")
+    for m in (1, 2, 3):
+        for k in kins:
+            d, c, f = R[f"V{m}{k}d"], R[f"C{m}{k}"], R[f"V{m}{k}"]
+            rel = max(float(np.max(np.abs(getattr(d, x) - getattr(c, x))
+                                   / np.abs(getattr(c, x)))) for x in fields)
+            gap = float(np.max(np.abs(f.pve - d.pve)))
+            chk[f"vc{m}_{k}"] = {"pve_card_f64": d.pve.tolist(),
+                                 "se_pve": d.se_pve.tolist(),
+                                 "f64_vs_cpu_f64_max_rel": rel,
+                                 "f32_pve_vs_f64_max_abs": gap}
+            if not rel <= 1e-8 or not gap <= 1e-3:
+                failed.append(f"vc{m}_{k}")
+    reml = R["V2mkd"]
+    chk["reml_mk_total_pve"] = [reml.pve_total, reml.se_pve_total]
+    if not abs(reml.pve_total - VC_H2) <= 3 * reml.se_pve_total:
+        failed.append("reml_total_pve")
+    cors = {t: np.concatenate(R[t]["cors"]) for t in ("VC", "VCd", "VG",
+                                                      "VGd")}
+    chk["cor_values"] = int(cors["VCd"].size)
+    chk["bandwidth"] = int(R["VCd"]["n_nb"].max())
+    chk["cor_f32_vs_f64_max_abs"] = float(np.max(np.abs(cors["VC"]
+                                                        - cors["VCd"])))
+    chk["gw_equals_calccor"] = bool(np.array_equal(cors["VGd"], cors["VCd"])
+                                    and np.array_equal(cors["VG"],
+                                                       cors["VC"]))
+    if not (chk["cor_f32_vs_f64_max_abs"] <= 1e-5 and chk["gw_equals_calccor"]
+            and np.array_equal(R["VC"]["var"], R["VCd"]["var"])):
+        failed.append("calccor")
+    chk["phase_h_seconds"] = time.time() - t_h
+    _say({"phase": "check_vc", **chk})
+    if failed:
+        raise RuntimeError(f"phase (h) checks failed: {failed}")
+    return counts, Xn
+
+
+def _hold_vc(counts_h, Xn, record, check):
+    """K15 against its plain version on random symmetric operands made on
+    the card (PC_M matrices of PC_N², float64 and float32), beside
+    torch.einsum; K16 on the whole band of phase (h)'s normalised rows
+    (all SNPs, the path's bandwidth) beside the reference's block product
+    and gather."""
+    import torch
+    from gemma_torch.models import varcov, vc
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(PC_N)
+    A64 = torch.randn((PC_M, PC_N, PC_N), dtype=torch.float64, device=dev,
+                      generator=gen)
+    A64 = (A64 + A64.transpose(1, 2)) / 2
+    for dt, sfx, cnt in ((torch.float64, "_f64", counts_h["vc_f64"]),
+                         (torch.float32, "", counts_h["vc"])):
+        A = A64 if dt == torch.float64 else A64.float()
+        kk = vc.pair_colsum_cuda(A, A)
+        pp = vc.pair_colsum_plain(A, A)
+        err = float((kk - pp).abs().max() / pp.abs().max())
+        del pp
+        ms = _time_ms(lambda: vc.pair_colsum_cuda(A, A), 10)
+        pms = _time_ms(lambda: vc.pair_colsum_plain(A, A), 3)
+        lib = _time_ms(lambda: torch.einsum("ist,jst->ijt", A, A), 3)
+        check("pair_colsum" + sfx, err <= 1e-12,
+              {"max_rel_err": err, "n": PC_N, "m": PC_M, "ms": ms,
+               "plain_ms": pms, "library_ms": lib})
+        record("pair_colsum" + sfx, err, ms, pms,
+               PC_M * PC_N * PC_N * A.element_size() + 8 * PC_M ** 2 * PC_N,
+               2 * PC_M ** 2 * PC_N * PC_N, peak=PEAK_F64_PER_S,
+               launches=cnt, library_ms=lib,
+               note="library_ms is torch.einsum('ist,jst->ijt', A, A) on "
+                    "the same operands (the stack against itself, as HE "
+                    "and ACL call it)")
+        del A, kk
+    del A64
+    torch.cuda.empty_cache()
+    bw = int(RESULTS["VCd"]["n_nb"].max())
+    Rn, n = Xn.shape
+    S = Rn
+    for dt, sfx, cnt in ((torch.float32, "", counts_h["cor"]),
+                         (torch.float64, "_f64", counts_h["cor_f64"])):
+        X = torch.as_tensor(Xn, dtype=dt, device=dev).contiguous()
+        kk = varcov.banded_cor_cuda(X, S, bw)
+        pp = varcov.banded_cor_plain(X, S, bw)
+        diff = float((kk - pp).abs().max())
+        err = diff if dt == torch.float32 else diff / float(pp.abs().max())
+        ms = _time_ms(lambda: varcov.banded_cor_cuda(X, S, bw), 10)
+        pms = _time_ms(lambda: varcov.banded_cor_plain(X, S, bw), 3)
+
+        def library():
+            """The reference's form (varcov.py:51-60, 63-105): each block
+            of 2,048 rows times its rows and the next bw, zero-padded,
+            then the bw diagonals gathered."""
+            for s in range(0, S, 2048):
+                e = min(s + 2048, S)
+                nb = torch.cat([X[s:min(e + bw, Rn)],
+                                X.new_zeros((max(e + bw - Rn, 0), n))])
+                full = X[s:e] @ nb.T
+                idx = (torch.arange(e - s, device=dev)[:, None]
+                       + torch.arange(1, bw + 1, device=dev)[None, :])
+                torch.take_along_dim(full, idx, dim=1)
+
+        lib = _time_ms(library, 3)
+        tol = 1e-5 if dt == torch.float32 else 1e-12
+        check("banded_cor" + sfx, err <= tol,
+              {"max_err": err, "S": S, "bw": bw, "n": n, "ms": ms,
+               "plain_ms": pms, "library_ms": lib})
+        record("banded_cor" + sfx, err, ms, pms,
+               X.element_size() * (Rn * n + S * bw), 2 * S * bw * n,
+               peak=PEAK_F32_PER_S if dt == torch.float32
+               else PEAK_F64_PER_S, launches=cnt, library_ms=lib,
+               note="library_ms is the reference's form: blocks of 2,048 "
+                    "rows times their rows and the next bw by torch.matmul,"
+                    " then torch.take_along_dim of the bw diagonals")
+        del X, kk, pp
 
 
 def _drive_bslmm(kernels, paths, td, geno, f64):
@@ -1308,6 +1638,8 @@ def main():
         counts_f, mv_ops = _drive_mvlmm(kernels, paths, td, f64, dev)
         # (g) BSLMM and prediction on the mouse genotypes
         counts_g = _drive_bslmm(kernels, paths, td, geno, f64)
+        # (h) variance components and correlations on the mouse genotypes
+        counts_h, vc_rows = _drive_vc(kernels, paths, td, geno, f64)
 
         # 4. kernels against their plain versions, main-path shapes
         from gemma_torch.config import GemmaConfig
@@ -1701,7 +2033,9 @@ def main():
                    launches=counts_e["lm"],
                    form="gene" if gene else None)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)
+    _hold_crt(mv_ops, counts_f, record, check)
     _hold_bslmm(counts_g, record, check)
+    _hold_vc(counts_h, vc_rows, record, check)
 
     for entry in results:
         if entry["name"] in per_lane:

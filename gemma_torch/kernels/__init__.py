@@ -225,11 +225,33 @@ _BF_REPLACES = "gemma_tpu/models/bslmmdap.py:43 _bf_table"
 DAP_BF = Kernel("dap_bf", _BF_ARGS, _BF_REPLACES)
 DAP_BF_F64 = Kernel("dap_bf_f64", _BF_ARGS, _BF_REPLACES, source="dap_bf")
 
+# K14, the mvLMM -crt factors (float64 operands; -crt runs in float64):
+# shapes, then eval, X0, R, Vg, Ve, Hvar, the scratch and the (3, S) output
+CALC_CRT = Kernel(
+    "calc_crt", (_I,) * 5 + (_P,) * 8,
+    "gemma_tpu/models/mvlmm_core.py:681 calc_crt (_calc_crt_one :561; from "
+    "gemma_tpu/models/mvlmm.py:322 _crt_block)")
+# K15, the pair column sums of -vc: ma, mb, n, same, A, B, the output's
+# row of matrices (mb of the whole output) and the output
+_PC_ARGS = (_I, _I, _I, _I, _P, _P, _I, _P)
+_PC_REPLACES = ("gemma_tpu/models/vc.py:50 _he_core (:74), :135 _reml_dev12 "
+                "(:154), :262 _acl_moments (:285): the Hadamard pair sums")
+PAIR_COLSUM = Kernel("pair_colsum", _PC_ARGS, _PC_REPLACES)
+PAIR_COLSUM_F64 = Kernel("pair_colsum_f64", _PC_ARGS, _PC_REPLACES,
+                         source="pair_colsum")
+# K16, the correlation band of -calccor/-gw: R, n, S, bw, X, out
+_BC_ARGS = (_I, _I, _I, _I, _P, _P)
+_BC_REPLACES = "gemma_tpu/models/varcov.py:51 _banded_cor"
+BANDED_COR = Kernel("banded_cor", _BC_ARGS, _BC_REPLACES)
+BANDED_COR_F64 = Kernel("banded_cor_f64", _BC_ARGS, _BC_REPLACES,
+                        source="banded_cor")
+
 ALL = (GENO_PROLOGUE, LAMBDA_GRID, LAMBDA_SOLVE, WALD_TAIL, SCORE_TAIL,
        LRT_TAIL, LAMBDA_SOLVE_F64, GENO_PROLOGUE_F64, WALD_TAIL_F64,
        SCORE_TAIL_F64, LM_TAIL, LM_TAIL_F64, MPH_EM, MPH_EM_F64, MPH_CALC_P,
        MPH_CALC_P_F64, MPH_NR, MPH_NR_F64, BSLMM_CHAIN, BSLMM_CHAIN_F64,
-       DAP_BF, DAP_BF_F64)
+       DAP_BF, DAP_BF_F64, CALC_CRT, PAIR_COLSUM, PAIR_COLSUM_F64,
+       BANDED_COR, BANDED_COR_F64)
 
 
 def variant(k32: Kernel, k64: Kernel, dtype: torch.dtype) -> Kernel:

@@ -9,7 +9,8 @@ mvlmm.cpp:2972-3416) over the per-lane kernels of mvlmm_core:
   per SNP:     (Vg, Ve) reset to the ML null, a short EM (em_iter/10),
                the Wald/LRT/score p-value; SNPs with p < -pnr are fitted
                again (EM, then Newton-Raphson, nr_iter/10) and tested at
-               that optimum.
+               that optimum; with -crt their Wald and LRT p-values take
+               the Edgeworth correction there (K14, CalcCRT).
 
 One K9 launch fits a whole block: every lane runs until it converges, so
 nothing is compacted or padded.  The float32 speed mode reproduces the
@@ -183,21 +184,30 @@ def mvlmm_assoc(eval_, X0, Y, Utx, null: MvlmmNull, mode: int, cfg,
     R = Utx[:, None, :].contiguous()
     Vs, Es, B0 = null.Vg_start[None], null.Ve_start[None], null.B_start[None]
     l0 = torch.tensor([null.logl_mle_H0], dtype=_F64, device=Utx.device)
+    crt = getattr(cfg, "crt", 0) == 1
     out = _out(S, d)
 
     def refine(reml: bool, p: np.ndarray):
         """EM then NR from the null start, and the test at that optimum,
-        for the lanes with p < -pnr (mvlmm.cpp:3302-3353)."""
+        for the lanes with p < -pnr (mvlmm.cpp:3302-3353); with -crt the
+        p-value (Wald for REML, LRT for ML) takes the Edgeworth
+        correction at that optimum (K14; the reference's
+        mvlmm.py:484-506).  Returns (K10's result, the refined p, idx)."""
         idx = np.flatnonzero(p < cfg.p_nr)
         if not len(idx):
-            return None, idx
+            return None, None, idx
         Ri = R[torch.as_tensor(idx, device=R.device)].contiguous()
         em = core.mph_em(reml, it.em_iter, it.em_prec, eval_, X0, Y, Ri, Vs,
                          Es, B0)
-        Vg2, Ve2, l2, _ = core.mph_nr(reml, it.nr_iter, it.nr_prec, eval_,
-                                      X0, Y, Ri, em.Vg, em.Ve)
-        return core.mph_calc_p(eval_, X0, Y, Ri, Vg2, Ve2,
-                               *((None, None) if reml else (l2, l0))), idx
+        Vg2, Ve2, l2, Hvar = core.mph_nr(reml, it.nr_iter, it.nr_prec,
+                                         eval_, X0, Y, Ri, em.Vg, em.Ve)
+        cp = core.mph_calc_p(eval_, X0, Y, Ri, Vg2, Ve2,
+                             *((None, None) if reml else (l2, l0)))
+        p2 = _np(cp.p if reml else cp.p_lrt)
+        if crt:
+            abc = core.calc_crt(eval_, X0, Ri, Vg2, Ve2, Hvar)
+            p2 = core.pcrt(1 if reml else 2, d, p2, *(_np(t) for t in abc))
+        return cp, p2, idx
 
     if mode in (3, 4):
         cp = core.mph_calc_p(eval_, X0, Y, R, Vs, Es)
@@ -209,18 +219,20 @@ def mvlmm_assoc(eval_, X0, Y, Utx, null: MvlmmNull, mode: int, cfg,
         out["em_iters"][:, 0] = iters.cpu().numpy()
         cp = core.mph_calc_p(eval_, X0, Y, R, Vg, Ve, logl, l0)
         _put(out, cp, p_key="p_lrt", p=cp.p_lrt)
-        cp2, idx = refine(False, out["p_lrt"])
+        cp2, p2, idx = refine(False, out["p_lrt"])
         if cp2 is not None:
-            _put(out, cp2, idx, "p_lrt", cp2.p_lrt)
+            _put(out, cp2, idx)
+            out["p_lrt"][idx] = p2
     if mode in (1, 4):
         Vg, Ve, _, iters = _em_fit(True, it, eval_, X0, Y, R, Vs, Es, B0,
                                    staged=True, switch=speed)
         out["em_iters"][:, 1] = iters.cpu().numpy()
         cp = core.mph_calc_p(eval_, X0, Y, R, Vg, Ve)
         _put(out, cp, p_key="p_wald", p=cp.p)
-        cp2, idx = refine(True, out["p_wald"])
+        cp2, p2, idx = refine(True, out["p_wald"])
         if cp2 is not None:
-            _put(out, cp2, idx, "p_wald", cp2.p)
+            _put(out, cp2, idx)
+            out["p_wald"][idx] = p2
     return out
 
 
@@ -230,7 +242,8 @@ def mvlmm_assoc_gxe(eval_, X0e, Y, Utx, Utxe, null: MvlmmNull, mode: int,
     mvlmm.cpp:3970-4416).  X0e holds [UtW; Ut env]; each lane's null adds
     its x ([W, env, x]) and its H1 also x∘env, the tested row.  For mode
     4 the REML refit of the per-SNP null seeds its ML refit, and that
-    seeds H1 (mvlmm.cpp:4268-4352); mode 3's score needs no refit."""
+    seeds H1 (mvlmm.cpp:4268-4352); mode 3's score needs no refit.  -crt
+    is not read here, as in the reference (ROADMAP §C17)."""
     d, S = Y.shape[0], Utx.shape[0]
     it = _Iters(cfg)
     R1 = Utx[:, None, :].contiguous()

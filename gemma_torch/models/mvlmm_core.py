@@ -30,6 +30,9 @@ to the kernel):
                   the closed-form gradient and Hessian (GEMMA's CalcDev)
                   in place of the reference's autodiff, step-halving and
                   GEMMA's acceptance rules; Hvar = -H^-1.
+  K14 calc_crt    CalcCRT (mvlmm_core.py:681): the Edgeworth correction
+                  factors of a lane at its Newton optimum, from the SNP
+                  block of Q^-1 alone (see calc_crt_plain).
 
 Eigenvectors of the d×d problems: the closed form of the reference at
 d = 2 (its `_eigh2x2`, including the branch choices); at d >= 3 (cyclic
@@ -768,3 +771,158 @@ def mph_nr(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R, Vg0,
     -H^-1), float64."""
     fn = mph_nr_plain if eval_.device.type == "cpu" else mph_nr_cuda
     return fn(reml, max_iter, prec, eval_, X0, Y, R, Vg0, Ve0)
+
+
+# ---------------------------------------------------------------------------
+# K14 calc_crt
+
+_CRT_CHUNK = 256        # lanes per step of the plain version
+
+
+def _lu_inv(M: torch.Tensor) -> torch.Tensor:
+    """Batched inverse by LU with partial pivoting: a singular matrix gives
+    inf/NaN, as the reference's jnp.linalg.inv, not an error."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(M)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return torch.linalg.lu_solve(LU, piv, eye.expand_as(M))
+
+
+def _crt_lanes(ev, X, Vg, Ve, Hvar):
+    """(crt_a, crt_b, crt_c) of the lanes of X (S, c, n), float64.
+
+    The reference (mvlmm_core.py:561-678) forms the (v, cd, cd) stacks
+    M_g, M_e and, per v1, MM_gg, MM_ge, MM_ee, and takes each trace
+    against Qi_si = ((Qi)_ss)^-1 from whole (cd, cd) products.  Every
+    trace reads only the SNP block's rows s of Qi, so with Qs = Qi[s, :],
+    R_k = Qs (x_k kron I_d), P_k = R_k Hi_k, Z = Qi_si and F_k = P_k' Z P_k:
+
+        (Qi M_p[v] Qi)_ss        = Σ_k δ_k^p P_k D_v P_k'         (SS_p[v])
+        tr((Qi MM_p Qi)_ss Z)    = Σ_k δ_k^p tr(D_1 Hi_k D_2 F_k)  (from
+                                   T_p = Σ_k δ_k^p Hi_k ⊗ F_k)
+        (Qi M_1 Qi M_2 Qi)_ss    = L_1 Qi L_2',  L_p[v] = Qs M_p[v]
+                                 = Σ_k δ_k^p x_k' ⊗ (P_k D_v Hi_k)
+
+    with D_v the vech basis, M_p's weights δ^p (g: p = 1, e: p = 0) and
+    MM's δ^p (gg: 2, ge: 1, ee: 0).  K14 accumulates the same sums."""
+    S, c, n = X.shape
+    d = Vg.shape[-1]
+    vs = d * (d + 1) // 2
+    cd = c * d
+    dev = X.device
+    Sb = vech_basis(d, device=dev)                           # (v, d, d)
+    D_l, UltVeh, A, _ = eigen_proc(Vg, Ve)
+    w = 1.0 / (D_l[..., None] * ev + 1.0)                    # (S, d, n)
+    Hi = torch.einsum("sli,sln,slj->snij", A, w, A)          # (S, n, d, d)
+    Qi_w, _ = calc_qi(ev, D_l, X)
+    Qi = torch.einsum("ski,sakbl,slj->saibj", UltVeh,
+                      Qi_w.reshape(S, c, d, c, d), UltVeh).reshape(S, cd, cd)
+    s0 = (c - 1) * d
+    Qs = Qi[:, s0:s0 + d, :].reshape(S, d, c, d)
+    Z = _lu_inv(Qi[:, s0:s0 + d, s0:s0 + d])
+    Rk = torch.einsum("san,siaj->snij", X, Qs)               # (S, n, d, d)
+    P = Rk @ Hi
+    F = torch.einsum("snai,sab,snbj->snij", P, Z, P)
+    e = [torch.ones_like(ev), ev, ev * ev]
+    # SS_p[v] (S, v, d, d) and C_p[v] = SS_p[v] Z, p = 0 (e), 1 (g)
+    C = [torch.einsum("n,snai,vij,snbj->svab", e[p], P, Sb, P) @ Z[:, None]
+         for p in range(2)]
+    # tr(D_1 Hi D_2 F) summed with δ^p: T_p[b, c, e, a]
+    MMtr = [torch.einsum("vab,wce,sbcea->svw", Sb, Sb,
+                         torch.einsum("n,snbc,snea->sbcea", e[p], Hi, F))
+            for p in range(3)]
+    # L_p[v] (S, v, d, cd) and Y_p[v] = Qi L_p[v]' Z (S, v, cd, d)
+    PD = torch.einsum("snai,vij->svnaj", P, Sb)
+    PDH = torch.einsum("svnaj,snje->svnae", PD, Hi)
+    L = [torch.einsum("n,sbn,svnae->svabe", e[p], X, PDH).reshape(S, vs, d, cd)
+         for p in range(2)]
+    Y = [Qi[:, None] @ L[p].transpose(-1, -2) @ Z[:, None] for p in range(2)]
+
+    def tt(p1, p2):                                          # tr(L1 Qi L2' Z)
+        return torch.einsum("svam,swma->svw", L[p1], Y[p2])
+
+    def cc(x, y):                                            # tr(C1 C2)
+        return torch.einsum("svab,swba->svw", x, y)
+
+    trB_gg = -tt(1, 1) + MMtr[2]
+    trB_ge = -(tt(1, 0) + tt(0, 1)) + 2.0 * MMtr[1]
+    trB_ee = -tt(0, 0) + MMtr[0]
+    Cg, Ce = C[1], C[0]
+    trCg = -torch.diagonal(Cg, dim1=-2, dim2=-1).sum(-1)     # (S, v)
+    trCe = -torch.diagonal(Ce, dim1=-2, dim2=-1).sum(-1)
+    trCC_gg, trCC_ee = cc(Cg, Cg), cc(Ce, Ce)
+    trCC_ge = cc(Cg, Ce) + cc(Ce, Cg)
+    hg, he, hx = Hvar[:, :vs, :vs], Hvar[:, :vs, vs:], Hvar[:, vs:, vs:]
+    # v1 <= v2, the v1 != v2 terms doubled with the same h (GEMMA's quirk,
+    # mvlmm.cpp:2309-2325)
+    mult = torch.triu(torch.full((vs, vs), 2.0, dtype=_F64, device=dev), 1) \
+        + torch.eye(vs, dtype=_F64, device=dev)
+    o = lambda a, b: a[:, :, None] * b[:, None, :]           # noqa: E731
+    B = (mult * (hg * trB_gg + he * trB_ge + hx * trB_ee)).sum((-1, -2))
+    Cs = (mult * (hg * (trCC_gg + 0.5 * o(trCg, trCg))
+                  + he * (trCC_ge + 0.5 * o(trCg, trCe) + 0.5 * o(trCe, trCg))
+                  + hx * (trCC_ee + 0.5 * o(trCe, trCe)))).sum((-1, -2))
+    Ds = (mult * (hg * (trCC_gg + trB_gg) + he * (trCC_ge + trB_ge)
+                  + hx * (trCC_ee + trB_ee))).sum((-1, -2))
+    return 2.0 * Ds - Cs, 2.0 * B, Cs
+
+
+def calc_crt_plain(eval_, X0, R, Vg, Ve, Hvar):
+    """PyTorch version of K14: CalcCRT (mvlmm_core.py:561-678) of each
+    lane at its Newton optimum, the tested row R[:, -1] last in the
+    design; Vg, Ve (S, d, d) and Hvar (S, 2v, 2v) = -H^-1 from mph_nr.
+    Returns (crt_a, crt_b, crt_c), each (S,) float64."""
+    ev = eval_.to(_F64)
+    S = R.shape[0]
+    out = [torch.empty(S, dtype=_F64, device=R.device) for _ in range(3)]
+    for a in range(0, S, _CRT_CHUNK):
+        b = min(a + _CRT_CHUNK, S)
+        res = _crt_lanes(ev, design(X0, R[a:b]), Vg[a:b].to(_F64),
+                         Ve[a:b].to(_F64), Hvar[a:b].to(_F64))
+        for o, r in zip(out, res):
+            o[a:b] = r
+    return tuple(out)
+
+
+def crt_scratch(d: int, c: int) -> int:
+    """float64 values of K14's per-lane scratch, as csrc/calc_crt.cu lays
+    it out: Qi (cd)², the sums SS_0, SS_1 (v d² each), T_0-T_2 (v² each),
+    L_0, L_1 (v d cd each), then C_0, C_1 (v d² each), Y_0, Y_1 (v cd d
+    each) and the six per-pair traces (v(v+1)/2 each)."""
+    vs, cd = d * (d + 1) // 2, c * d
+    return (cd * cd + 2 * vs * d * d + 3 * vs * vs + 2 * vs * d * cd
+            + 2 * vs * d * d + 2 * vs * cd * d + 6 * (vs * (vs + 1) // 2))
+
+
+def calc_crt_cuda(eval_, X0, R, Vg, Ve, Hvar):
+    """K14 on the card, float64 operands (-crt runs in float64); its
+    per-lane sums live in a scratch the wrapper allocates."""
+    n = eval_.shape[0]
+    c0, (S, r) = X0.shape[0], R.shape[:2]
+    d = Vg.shape[-1]
+    kernels.check_mvlmm_shape(d, c0 + r)
+    if r < 1:
+        raise ValueError("calc_crt: the tested row is the lane's last row")
+    kernels.check_operand(eval_, "eval", _F64, (n,))
+    kernels.check_operand(X0, "X0", _F64, (c0, n))
+    kernels.check_operand(R, "R", _F64, (S, r, n))
+    p2 = d * (d + 1)
+    Vg, Ve, Hvar = (t.to(_F64).contiguous() for t in (Vg, Ve, Hvar))
+    kernels.check_operand(Vg, "Vg", _F64, (S, d, d))
+    kernels.check_operand(Ve, "Ve", _F64, (S, d, d))
+    kernels.check_operand(Hvar, "Hvar", _F64, (S, p2, p2))
+    dev = eval_.device
+    out = torch.empty((3, S), dtype=_F64, device=dev)
+    scratch = torch.empty(S * crt_scratch(d, c0 + r), dtype=_F64, device=dev)
+    if S:
+        kernels.CALC_CRT.launch(dev, S, n, d, c0, r, eval_.data_ptr(),
+                                X0.data_ptr(), R.data_ptr(), Vg.data_ptr(),
+                                Ve.data_ptr(), Hvar.data_ptr(),
+                                scratch.data_ptr(), out.data_ptr())
+    return out[0], out[1], out[2]
+
+
+def calc_crt(eval_, X0, R, Vg, Ve, Hvar):
+    """Edgeworth correction factors (crt_a, crt_b, crt_c) of each lane's
+    last row at the lane's Newton optimum (K14 on the card)."""
+    fn = calc_crt_plain if eval_.device.type == "cpu" else calc_crt_cuda
+    return fn(eval_, X0, R, Vg, Ve, Hvar)

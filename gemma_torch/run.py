@@ -5,11 +5,11 @@ The port runs `-gk 1|2` (kinship), `-eigen`, the univariate LMM
 `-gxe`, `-gene`, LOCO and `-ksnps`/`-gwasnps`), the multivariate LMM
 (`-lmm 1/2/3/4/9` with several `-n`, with `-gxe`), the linear model
 `-lm 1/2/3/4` (with `-gene`), BSLMM `-bslmm 1-5` and prediction
-`-predict 1/2/3`, on one device, in float32 (speed mode) or float64
-(parity mode).  Each
-`run_*` wires the dataset through the device code and writes
-GEMMA-compatible files; `batch_run` dispatches on a_mode like the
-reference's if-chain.
+`-predict 1/2/3`, variance components from kinships `-vc 1/2/3` and the
+windowed correlations `-calccor`/`-gw`, on one device, in float32 (speed
+mode) or float64 (parity mode).  Each `run_*` wires the dataset through
+the device code and writes GEMMA-compatible files; `batch_run` dispatches
+on a_mode like the reference's if-chain.
 
 Entry points run on `cuda` unless the caller asks for the CPU
 (`device="cpu"`, or `-device cpu` on the command line).  Without a card
@@ -26,7 +26,8 @@ from gemma_torch.config import GemmaConfig, check_param
 from gemma_torch.dataset import Dataset, load_dataset
 from gemma_torch import kernels
 from gemma_torch.io.readers import (read_eigen_d, read_eigen_u,
-                                    read_gene_expression, read_kinship)
+                                    read_gene_expression, read_kinship,
+                                    read_multi_kinship)
 from gemma_torch.io.readers import read_gxe
 from gemma_torch.io.writers import (
     write_matrix, write_vector, write_lmm_assoc, write_lmm_gene_assoc,
@@ -34,7 +35,7 @@ from gemma_torch.io.writers import (
     write_bslmm_hyp, write_bslmm_gamma, write_bslmm_param, write_bslmm_bv,
     snp_rows_from_table, ensure_outdir,
 )
-from gemma_torch.models import bslmm, bslmmdap, predict
+from gemma_torch.models import bslmm, bslmmdap, predict, varcov, vc
 from gemma_torch.models.lm import lm_block, lm_gene_block
 from gemma_torch.models.lmm import likelihood as lk
 from gemma_torch.models.lmm.engine import (
@@ -48,11 +49,10 @@ from gemma_torch.ops.pack2 import IMPUTE, PAD_BYTE, pack_bed_codes, prologue
 from gemma_torch.utils.log import RunLog
 from gemma_torch.utils.validate import check_finite, validate_kinship
 
-# analysis modes outside this slice → their ROADMAP.md queue entry
-_NOT_PORTED = {
-    (25, 26, 27, 28, 61, 62, 63, 66, 67, 71, 72):
-        "queue A, \"variance components and summary statistics\"",
-}
+# analysis modes outside the port → their ROADMAP.md queue entry (-vc
+# 1/2/3 from -beta or -study/-ref too, see batch_run)
+_SUMMARY_STATS = "queue A, \"summary statistics\""
+_NOT_PORTED = {(25, 26, 27, 28, 66, 67): _SUMMARY_STATS}
 
 
 def _not_ported(what: str, entry: str) -> NotImplementedError:
@@ -459,12 +459,16 @@ def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
     """Multivariate LMM association (-lmm 1/2/3/4/9 with more than one
     -n), with -gxe the SNP-by-environment test (MVLMM::AnalyzeBimbam and
     AnalyzeBimbamGXE, mvlmm.cpp:2972-4416).  -lmm 9 runs no test and
-    writes the zero columns GEMMA writes."""
+    writes the zero columns GEMMA writes.  -crt (read without -gxe only,
+    as the reference: ROADMAP §C17) runs in float64 whatever -precision
+    says: the -pnr refit stops at a 1e-3 logl tolerance and the
+    correction amplifies where it stops, so float32 operands part its
+    p_lrt from float64 by up to 0.4 (ROADMAP §C18)."""
     device = torch.device(device)
     dtype = precision.resolve_dtype(cfg.precision, device)
+    if cfg.crt and not cfg.file_gxe:
+        dtype = torch.float64
     log = log or RunLog(argv=["gemma_torch"], device=device)
-    if cfg.crt:
-        raise _not_ported("-crt", "queue A, \"mvLMM -crt\"")
     with log.timer.phase("load"):
         ds = load_dataset(cfg)
     d = cfg.n_ph
@@ -992,6 +996,113 @@ def run_predict43(cfg: GemmaConfig, log: RunLog | None = None,
 
 
 # ---------------------------------------------------------------------------
+# -vc: variance components from kinship matrices (modes 61-63)
+
+def run_vc(cfg: GemmaConfig, log: RunLog | None = None,
+           device: str | torch.device = "cuda") -> vc.VcResult:
+    """HE (-vc 1), REML-AI (-vc 2) or ACL (-vc 3) estimates of the
+    variance components of one phenotype from -k or -mk kinships
+    (gemma.cpp:2332-2374, vc.cpp)."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg, need_geno=False)
+    if cfg.n_ph != 1:
+        raise NotImplementedError("-vc supports one phenotype")
+    with log.timer.phase("kread"):
+        if cfg.file_mk:
+            K = read_multi_kinship(cfg.file_mk, ds.indicator_idv, ids=ds.ids,
+                                   k_mode=cfg.k_mode)
+        elif cfg.file_kin:
+            K = read_kinship(cfg.file_kin, ds.indicator_idv, ids=ds.ids,
+                             k_mode=cfg.k_mode)[None]
+        else:
+            raise ValueError("-vc requires -k or -mk")
+    # centre each K and record its trace (the reference's run.py:1380-1389)
+    Kd = torch.as_tensor(np.asarray(K, np.float64), dtype=torch.float64,
+                         device=device)
+    Kd = torch.stack([center_matrix(Ki) for Ki in Kd])
+    v_traceG = torch.diagonal(Kd, dim1=-2, dim2=-1).mean(-1).cpu().numpy()
+    if cfg.check and cfg.file_kin:
+        validate_kinship(Kd[0].cpu().numpy(), strict=cfg.strict)
+    Kd = Kd.to(dtype).contiguous()
+    W = torch.as_tensor(ds.W, dtype=dtype, device=device)
+    y = torch.as_tensor(ds.Y[:, 0], dtype=dtype, device=device)
+    with log.timer.phase("opt"):
+        if cfg.a_mode == 61:
+            res = vc.vc_he(Kd, W, y, v_traceG)
+        elif cfg.a_mode == 62:
+            res = vc.vc_reml_ai(Kd, W, y, v_traceG,
+                                noconstrain=cfg.noconstrain)
+        else:
+            res = vc.vc_acl(Kd, W, y, v_traceG)
+
+    m = Kd.shape[0]
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.summary["number of covariates"] = ds.n_cvt
+    log.summary["number of phenotypes"] = cfg.n_ph
+    log.summary["number of variance components"] = m
+    log.extra.append("pve estimates = " +
+                     "".join(f"  {v:.6g}" for v in res.pve))
+    log.extra.append("se(pve) = " +
+                     "".join(f"  {v:.6g}" for v in res.se_pve))
+    if m > 1:
+        log.extra.append(f"total pve = {res.pve_total:.6g}")
+        log.extra.append(f"se(total pve) = {res.se_pve_total:.6g}")
+    log.extra.append("sigma2 estimates = " +
+                     "".join(f"  {v:.6g}" for v in res.sigma2))
+    log.extra.append("se(sigma2) = " +
+                     "".join(f"  {v:.6g}" for v in res.se_sigma2))
+    ensure_outdir(cfg.path_out)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# -calccor and -gw: windowed SNP correlations (modes 71, 72)
+
+def run_calccor(cfg: GemmaConfig, log: RunLog | None = None,
+                device: str | torch.device = "cuda") -> dict:
+    """Each kept SNP's variance and its correlations with the following
+    SNPs in its window (VARCOV, varcov.cpp); -gw (mode 72) runs the same
+    analysis (gemma.cpp:1928-1945).  Writes prefix.cor.txt."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    window_bp = cfg.window_bp
+    if cfg.window_cm == 0 and cfg.window_bp == 0 and cfg.window_ns == 0:
+        window_bp = 1e6  # param.cpp:629-631
+    idx = np.flatnonzero(ds.qc.indicator_snp)
+    chr_ = [ds.geno.snps.chr[i] for i in idx]
+    n_nb = varcov.calc_neighbours(chr_, ds.geno.snps.pos[idx],
+                                  ds.geno.snps.cM[idx], window_bp,
+                                  cfg.window_cm, cfg.window_ns)
+
+    def fetch(lo, hi):
+        return ds.geno.block(idx[lo:hi])[:, ds.indicator_idv]
+
+    with log.timer.phase("opt"):
+        var, cors = varcov.windowed_correlations_fetch(
+            fetch, len(idx), ds.ni_test, n_nb, dtype, device)
+    rows = snp_rows_from_table(ds.geno.snps, ds.qc, idx)
+    for r, i in zip(rows, idx):
+        r["n_obs"] = int(ds.qc.n_idv[i])
+    ensure_outdir(cfg.path_out)
+    with log.timer.phase("write"):
+        varcov.write_cor(f"{cfg.out_prefix()}.cor.txt", rows, var, cors)
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.summary["number of total SNPs/var"] = ds.geno.n_snps
+    log.summary["number of analyzed SNPs/var"] = len(idx)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return dict(var=var, cors=cors, n_nb=n_nb, snp_indices=idx, dataset=ds)
+
+
+# ---------------------------------------------------------------------------
 
 def batch_run(cfg: GemmaConfig, argv: list | None = None,
               device: str | None = None):
@@ -1003,6 +1114,10 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
     check_param(cfg)
     if cfg.trace_dir:
         raise _not_ported("-trace", "queue A, \"skeleton\" (profiling)")
+    if cfg.debug and cfg.fpe_check:
+        # the reference traps the first NaN (jax_debug_nans) under -debug;
+        # the port has no such trap yet (ROADMAP §C15)
+        raise _not_ported("-debug", "queue A, \"skeleton\" (profiling)")
     precision.apply_matmul_precision()
     log = RunLog(argv=argv or ["gemma_torch"], quiet=cfg.quiet, device=dev)
     if cfg.a_mode in (21, 22):
@@ -1023,6 +1138,14 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
         return run_predict(cfg, log, dev)
     if cfg.a_mode == 43:
         return run_predict43(cfg, log, dev)
+    if cfg.a_mode in (61, 62, 63):
+        if cfg.file_beta or ((cfg.file_study or cfg.file_mstudy)
+                             and (cfg.file_ref or cfg.file_mref)):
+            raise _not_ported(f"analysis mode {cfg.a_mode} from -beta or "
+                              "-study/-ref", _SUMMARY_STATS)
+        return run_vc(cfg, log, dev)
+    if cfg.a_mode in (71, 72):
+        return run_calccor(cfg, log, dev)
     else:
         for modes, entry in _NOT_PORTED.items():
             if cfg.a_mode in modes:

@@ -249,11 +249,14 @@ def test_bslmm1_initial_values_and_file_shapes(data):
 
 
 @pytest.mark.parametrize("flags, entry", [
-    ("-n 1 2 -lmm 1 -crt", 'queue A, "mvLMM -crt"'),
-    ("-vc 1", 'queue A, "variance components and summary statistics"'),
+    # -crt runs now; -debug, which the port does not trap yet, still raises
+    ("-n 1 2 -lmm 1 -crt -debug", 'queue A, "skeleton" (profiling)'),
+    # -vc from kinships runs now; from summary statistics it still raises
+    ("-vc 1 -beta {td}/K.cXX.txt", 'queue A, "summary statistics"'),
 ], ids=["crt", "vc"])
 def test_modes_still_outside_the_port_name_their_queue(data, flags, entry):
     td, common = data
+    flags = flags.format(td=td)
     cfg = torch_parse((common + f" -k {td}/K.cXX.txt {flags} -o X").split())
     with pytest.raises(NotImplementedError, match=re.escape(entry)):
         torch_batch_run(cfg, device="cpu")

@@ -162,13 +162,14 @@ def test_lmm1_float32_port_within_contract(bimbam):
 
 
 @pytest.mark.parametrize("flags,entry", [
-    ("-n 1 2 -lmm 1 -crt", "mvLMM -crt"),
-    ("-vc 1", "variance components and summary statistics"),
-    ("-gs 1", "variance components and summary statistics"),
-    ("-calccor", "variance components and summary statistics"),
+    ("-gs 1", 'queue A, "summary statistics"'),
+    ("-vc 1 -beta {pheno}", 'queue A, "summary statistics"'),
+    ("-ci 1 -beta {pheno} -ref {pheno}", 'queue A, "summary statistics"'),
+    ("-lmm 1 -debug", 'queue A, "skeleton" (profiling)'),
 ])
 def test_modes_outside_the_slice_raise(bimbam, flags, entry):
     td, (geno, pheno) = bimbam
+    flags = flags.format(pheno=pheno)
     argv = (f"-g {geno} -p {pheno} -k {td}/none.txt {flags} -outdir {td}")
     cfg = torch_parse(argv.split())
     cfg.file_kin = ""

@@ -165,3 +165,30 @@ def test_bslmm_wrappers_send_cpu_tensors_to_plain_versions(dtype):
     assert all(k.launches == 0 for k in kernels.ALL)
     assert out.t == 8 and out.w == 3 and out.alpha.dtype == torch.float64
     assert bf.shape == (p, 4) and np.isfinite(bf).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_crt_vc_varcov_wrappers_send_cpu_tensors_to_plain_versions(dtype):
+    """K14's, K15's and K16's wrappers on CPU tensors, float32 and float64
+    operands: plain versions only, no kernel built or launched."""
+    import numpy as np
+    from gemma_torch import kernels
+    from gemma_torch.models import mvlmm_core, varcov, vc
+    rng = np.random.default_rng(3)
+    n, S, d = 20, 3, 2
+    t = lambda a: torch.as_tensor(a, dtype=dtype)         # noqa: E731
+    ev = t(np.sort(rng.uniform(0, 2, n)))
+    X0 = torch.ones((1, n), dtype=dtype)
+    R = t(rng.normal(size=(S, 1, n)))
+    V = torch.eye(d, dtype=torch.float64).expand(S, d, d)
+    H = -torch.eye(d * (d + 1), dtype=torch.float64).expand(S, 6, 6)
+    K = t(rng.normal(size=(2, n, n)))
+    kernels.reset_launches()
+    crt = mvlmm_core.calc_crt(ev, X0, R, V, 0.5 * V, H)
+    pc = vc.pair_colsum(K, K[:1])
+    band = varcov.banded_cor(t(rng.normal(size=(8, n))), 5, 3)
+    assert all(k.launches == 0 for k in kernels.ALL)
+    assert all(x.shape == (S,) and bool(torch.isfinite(x).all())
+               for x in crt)
+    assert pc.shape == (2, 1, n) and pc.dtype == torch.float64
+    assert band.shape == (5, 3) and band.dtype == dtype

@@ -167,9 +167,11 @@ def test_mvlmm_lmm9_writes_what_the_reference_writes(data):
 
 
 def test_mvlmm_crt_names_its_queue_entry(data):
+    """-crt had its queue entry until the port ran it; now -lmm 1 -crt
+    writes what the reference writes (tests/test_torch_crt.py holds the
+    correction itself)."""
     td, common = data
-    cfg = torch_parse((common + " -lmm 1 -crt -o C").split())
-    with pytest.raises(NotImplementedError, match=re.escape(
-            'queue A, "mvLMM -crt"')):
-        torch_batch_run(cfg, device="cpu")
-    assert not os.path.exists(f"{td}/C.assoc.txt")
+    argv = (common + " -lmm 1 -crt").split()
+    tpu_batch_run(tpu_parse(argv + ["-o", "RC"]), argv=["tpu"] + argv)
+    torch_batch_run(torch_parse(argv + ["-o", "C"]), device="cpu")
+    _compare(td, "RC", "C")
