@@ -80,9 +80,11 @@
    the float64 tolerances; K12 for 2,000 iterations from -bslmm 1's
    state in each precision and 100 of -bslmm 3's, K13 on -bslmm 4's
    products; K14 on the lanes the -crt paths refine, at their Newton
-   optima, protocol block and five-trait block; K15 on three random
-   symmetric 8,192² matrices made on the card, K16 on the whole band of
-   phase (h)'s rows), with the tolerances below, and times both
+   optima, protocol block and five-trait block; K15 on the -vc paths'
+   own stacks (HE's against itself, REML's P against the stack, -k and
+   -mk) and on three random symmetric 8,192² matrices made on the card,
+   K16 on the whole band of phase (h)'s rows and on the path's first and
+   last blocks), with the tolerances below, and times both
    (CUDA events, median after warm-up, L2 flushed between runs; the
    plain mvLMM loops once, on the call compared).
 5. Prints the card's name and power limit, the kernels line and, last,
@@ -221,6 +223,7 @@ HOLD_ITERS = 2000
 # K15 held on random symmetric operands at this n and stack
 VC_H2, VC_SEED, PC_N, PC_M = 0.5, 6, 8192, 3
 RESULTS = {}             # -o tag → what batch_run returned
+PC_OPERANDS = {}         # K15's operands on the -vc paths, by form
 
 
 def _fail(msg):
@@ -746,27 +749,6 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
     return counts_f, ops
 
 
-def _first_stage(o, reml):
-    """The -lmm 4 path's first p-values on a protocol block (before the
-    -pnr refinement; models/mvlmm.py mvlmm_assoc): p_wald of the staged
-    REML fit, or p_lrt of the ML fit."""
-    import torch
-    from gemma_torch.config import GemmaConfig
-    from gemma_torch.models import mvlmm_core as mvc
-    from gemma_torch.models.mvlmm import _em_fit, _Iters
-    it = _Iters(GemmaConfig())
-    ev, X0, Y, R, nul = o["ev"], o["X0"], o["Y"], o["R1"], o["null"]
-    speed = ev.dtype == torch.float32
-    Vs, Es, B0 = nul.Vg_start[None], nul.Ve_start[None], nul.B_start[None]
-    Vg, Ve, logl, _ = _em_fit(reml, it, ev, X0, Y, R, Vs, Es, B0,
-                              staged=reml or speed, switch=speed)
-    if reml:
-        return mvc.mph_calc_p(ev, X0, Y, R, Vg, Ve).p
-    l0 = torch.tensor([nul.logl_mle_H0], dtype=torch.float64,
-                      device=ev.device)
-    return mvc.mph_calc_p(ev, X0, Y, R, Vg, Ve, logl, l0).p_lrt
-
-
 def _timed(fn):
     """(fn(), ms) of one call (CUDA events, L2 flushed before it): the
     plain mvLMM loops, seconds long at a whole block, are timed on the
@@ -941,21 +923,26 @@ def _crt_work(S, d, c, n, isz):
 
 def _hold_crt(mv_ops, counts_f, record, check):
     """K14 against its plain version on the card, on the lanes the -crt
-    paths refine and at their Newton optima, as the path reaches them
-    (models/mvlmm.py refine): the protocol block's REML lanes with p_wald
-    < 0.9 (the -lmm 4 -crt paths) and the -n 1 2 3 4 5 block's (1,024
-    SNPs, d = 5), float64 operands as -crt runs."""
+    paths refined (their results' `refined` column) and at their Newton
+    optima, as the path reaches them (models/mvlmm.py refine): the
+    protocol block's REML lanes of `-lmm 4 -crt` (float64) and the -n 1 2
+    3 4 5 block's (1,024 SNPs, d = 5), float64 operands as -crt runs."""
     import torch
     from gemma_torch.config import GemmaConfig
     from gemma_torch.models import mvlmm_core as mvc
     from gemma_torch.models.mvlmm import _Iters
     it = _Iters(GemmaConfig())
-    for o, cnt, form in ((mv_ops[torch.float64], counts_f["crt"], None),
-                         (mv_ops["d5_f64"], counts_f["d5_crt"], "d5")):
+    for o, cnt, form, tag, of in (
+            (mv_ops[torch.float64], counts_f["crt"], None, "MRd", "M1"),
+            (mv_ops["d5_f64"], counts_f["d5_crt"], "d5", "M5R", "M5")):
         ev, X0, Y, R, nul = o["ev"], o["X0"], o["Y"], o["R1"], o["null"]
         Vs, Es, B0 = (nul.Vg_start[None], nul.Ve_start[None],
                       nul.B_start[None])
-        idx = torch.nonzero(_first_stage(o, True) < 0.9).flatten()
+        if not np.array_equal(RESULTS[tag]["snp_indices"],
+                              RESULTS[of]["snp_indices"]):
+            raise RuntimeError(f"{tag}: not the SNPs of the operands")
+        idx = torch.as_tensor(np.flatnonzero(
+            RESULTS[tag]["stats"]["refined"][:, 1]), device=R.device)
         Ri = R[idx].contiguous()
         em = mvc.mph_em(True, it.em_iter, it.em_prec, ev, X0, Y, Ri, Vs, Es,
                         B0)
@@ -1001,15 +988,20 @@ def _drive_vc(kernels, paths, td, geno, f64):
     counts = {
         "gk": _drive(kernels, paths, "vc_gk", [
             (f"vc_gk{i}", vp + f"-gk 1 -snps {td}/vc_half{i}.snps "
-             f"-o VK{i}".split()) for i in (0, 1)], ("geno_prologue",)),
-        "vc": _drive(kernels, paths, "vc", [
+             f"-o VK{i}".split()) for i in (0, 1)], ("geno_prologue",))}
+    restore = _keep_pair_colsum(PC_OPERANDS)
+    try:
+        counts["vc"] = _drive(kernels, paths, "vc", [
             (f"vc{m}_{k}", vp + kv + f"-vc {m} -o V{m}{k}".split())
             for m in (1, 2, 3) for k, kv in kins.items()], ("pair_colsum",),
-            keep=True),
-        "vc_f64": _drive(kernels, paths, "vc_f64", [
+            keep=True)
+        counts["vc_f64"] = _drive(kernels, paths, "vc_f64", [
             (f"vc{m}_{k}_f64", vp + kv + f64 + f"-vc {m} -o V{m}{k}d".split())
             for m in (1, 2, 3) for k, kv in kins.items()],
-            ("pair_colsum_f64",), keep=True),
+            ("pair_colsum_f64",), keep=True)
+    finally:
+        restore()
+    counts.update({
         "cor": _drive(kernels, paths, "calccor", [
             ("calccor", vp + cc + "-calccor -o VC".split()),
             ("gw", vp + cc + "-gw -o VG".split())], ("banded_cor",),
@@ -1018,7 +1010,7 @@ def _drive_vc(kernels, paths, td, geno, f64):
             ("calccor_f64", vp + cc + f64 + "-calccor -o VCd".split()),
             ("gw_f64", vp + cc + f64 + "-gw -o VGd".split())],
             ("banded_cor_f64",), keep=True),
-    }
+    })
     _say({"phase": "e2e_vc", "paths": {
         k: v for k, v in paths.items() if k.startswith(("vc", "calccor"))}})
     t0 = time.time()
@@ -1064,15 +1056,75 @@ def _drive_vc(kernels, paths, td, geno, f64):
     return counts, Xn
 
 
+def _keep_pair_colsum(store):
+    """Wrap models.vc.pair_colsum so that the first call of each form
+    (operand type, B is A, stack sizes) keeps a copy of its operands in
+    `store`: K15 is held on the -vc paths' own stacks.  Returns the
+    function that unwraps it."""
+    from gemma_torch.models import vc
+    wrapped = vc.pair_colsum
+
+    def keep(A, B):
+        same = A.data_ptr() == B.data_ptr()
+        key = (A.dtype, same, A.shape[0], B.shape[0])
+        if key not in store:
+            a = A.clone()
+            store[key] = (a, a if same else B.clone())
+        return wrapped(A, B)
+
+    vc.pair_colsum = keep
+    return lambda: setattr(vc, "pair_colsum", wrapped)
+
+
+def _pc_form(key):
+    """The name of a K15 form kept by _keep_pair_colsum: HE's centred and
+    scaled stack against itself (ACL's standardised stack has the same
+    shape), or REML's P against the stack, for one kinship (-k) or two
+    (-mk)."""
+    _, same, ma, mb = key
+    return ("he_" if same else "reml_") + ("k" if mb == 1 else "mk")
+
+
 def _hold_vc(counts_h, Xn, record, check):
-    """K15 against its plain version on random symmetric operands made on
-    the card (PC_M matrices of PC_N², float64 and float32), beside
-    torch.einsum; K16 on the whole band of phase (h)'s normalised rows
-    (all SNPs, the path's bandwidth) beside the reference's block product
-    and gather."""
+    """K15 against its plain version on the -vc paths' own stacks (n =
+    1,940, each in the precision that ran it: HE's scaled stack against
+    itself and REML's P against the stack, for -k and -mk) and on PC_M
+    random symmetric PC_N² matrices made on the card (the kernels line's
+    main row), beside torch.einsum; K16 on the whole band of phase (h)'s
+    normalised rows (all SNPs, the path's bandwidth) and on the path's
+    first and last blocks (varcov.BLOCK rows and the bw rows after them),
+    beside the reference's block product and gather."""
     import torch
     from gemma_torch.models import varcov, vc
     dev = torch.device("cuda")
+
+    def hold_pc(A, B, sfx, cnt, form):
+        kk = vc.pair_colsum_cuda(A, B)
+        pp = vc.pair_colsum_plain(A, B)
+        err = float((kk - pp).abs().max() / pp.abs().max())
+        del kk, pp
+        ms = _time_ms(lambda: vc.pair_colsum_cuda(A, B), 10)
+        pms = _time_ms(lambda: vc.pair_colsum_plain(A, B), 3)
+        lib = _time_ms(lambda: torch.einsum("ist,jst->ijt", A, B), 3)
+        ma, mb, n = A.shape[0], B.shape[0], A.shape[-1]
+        same = A.data_ptr() == B.data_ptr()
+        check("pair_colsum" + sfx, err <= 1e-12,
+              {"block": form or "random", "max_rel_err": err, "n": n,
+               "ma": ma, "mb": mb, "B_is_A": same, "ms": ms,
+               "plain_ms": pms, "library_ms": lib})
+        record("pair_colsum" + sfx, err, ms, pms,
+               (ma + (0 if same else mb)) * n * n * A.element_size()
+               + 8 * ma * mb * n, 2 * ma * mb * n * n, peak=PEAK_F64_PER_S,
+               launches=cnt, library_ms=lib, form=form,
+               note="library_ms is torch.einsum('ist,jst->ijt', A, B) on "
+                    "the same operands")
+
+    for key in sorted(PC_OPERANDS, key=str):
+        A, B = PC_OPERANDS[key]
+        f64 = key[0] == torch.float64
+        hold_pc(A, B, "_f64" if f64 else "",
+                counts_h["vc_f64" if f64 else "vc"], _pc_form(key))
+    PC_OPERANDS.clear()
     gen = torch.Generator(device=dev).manual_seed(PC_N)
     A64 = torch.randn((PC_M, PC_N, PC_N), dtype=torch.float64, device=dev,
                       generator=gen)
@@ -1080,65 +1132,65 @@ def _hold_vc(counts_h, Xn, record, check):
     for dt, sfx, cnt in ((torch.float64, "_f64", counts_h["vc_f64"]),
                          (torch.float32, "", counts_h["vc"])):
         A = A64 if dt == torch.float64 else A64.float()
-        kk = vc.pair_colsum_cuda(A, A)
-        pp = vc.pair_colsum_plain(A, A)
-        err = float((kk - pp).abs().max() / pp.abs().max())
-        del pp
-        ms = _time_ms(lambda: vc.pair_colsum_cuda(A, A), 10)
-        pms = _time_ms(lambda: vc.pair_colsum_plain(A, A), 3)
-        lib = _time_ms(lambda: torch.einsum("ist,jst->ijt", A, A), 3)
-        check("pair_colsum" + sfx, err <= 1e-12,
-              {"max_rel_err": err, "n": PC_N, "m": PC_M, "ms": ms,
-               "plain_ms": pms, "library_ms": lib})
-        record("pair_colsum" + sfx, err, ms, pms,
-               PC_M * PC_N * PC_N * A.element_size() + 8 * PC_M ** 2 * PC_N,
-               2 * PC_M ** 2 * PC_N * PC_N, peak=PEAK_F64_PER_S,
-               launches=cnt, library_ms=lib,
-               note="library_ms is torch.einsum('ist,jst->ijt', A, A) on "
-                    "the same operands (the stack against itself, as HE "
-                    "and ACL call it)")
-        del A, kk
+        hold_pc(A, A, sfx, cnt, None)
+        del A
     del A64
     torch.cuda.empty_cache()
+
+    blk = varcov.BLOCK
     bw = int(RESULTS["VCd"]["n_nb"].max())
     Rn, n = Xn.shape
-    S = Rn
+    last = (Rn - 1) // blk * blk
+    # (form, first row, rows correlated, rows given)
+    spans = ((None, 0, Rn, Rn),
+             ("first_block", 0, blk, min(blk + bw, Rn)),
+             ("last_block", last, Rn - last, Rn - last))
+
+    def library(X, S):
+        """The reference's form (varcov.py:51-60, 63-105): each block of
+        varcov.BLOCK rows times its rows and the next bw, zero-padded, then
+        the bw diagonals gathered."""
+        R = X.shape[0]
+        for s in range(0, S, blk):
+            e = min(s + blk, S)
+            nb = torch.cat([X[s:min(e + bw, R)],
+                            X.new_zeros((max(e + bw - R, 0), n))])
+            full = X[s:e] @ nb.T
+            idx = (torch.arange(e - s, device=dev)[:, None]
+                   + torch.arange(1, bw + 1, device=dev)[None, :])
+            torch.take_along_dim(full, idx, dim=1)
+
     for dt, sfx, cnt in ((torch.float32, "", counts_h["cor"]),
                          (torch.float64, "_f64", counts_h["cor_f64"])):
-        X = torch.as_tensor(Xn, dtype=dt, device=dev).contiguous()
-        kk = varcov.banded_cor_cuda(X, S, bw)
-        pp = varcov.banded_cor_plain(X, S, bw)
-        diff = float((kk - pp).abs().max())
-        err = diff if dt == torch.float32 else diff / float(pp.abs().max())
-        ms = _time_ms(lambda: varcov.banded_cor_cuda(X, S, bw), 10)
-        pms = _time_ms(lambda: varcov.banded_cor_plain(X, S, bw), 3)
-
-        def library():
-            """The reference's form (varcov.py:51-60, 63-105): each block
-            of 2,048 rows times its rows and the next bw, zero-padded,
-            then the bw diagonals gathered."""
-            for s in range(0, S, 2048):
-                e = min(s + 2048, S)
-                nb = torch.cat([X[s:min(e + bw, Rn)],
-                                X.new_zeros((max(e + bw - Rn, 0), n))])
-                full = X[s:e] @ nb.T
-                idx = (torch.arange(e - s, device=dev)[:, None]
-                       + torch.arange(1, bw + 1, device=dev)[None, :])
-                torch.take_along_dim(full, idx, dim=1)
-
-        lib = _time_ms(library, 3)
-        tol = 1e-5 if dt == torch.float32 else 1e-12
-        check("banded_cor" + sfx, err <= tol,
-              {"max_err": err, "S": S, "bw": bw, "n": n, "ms": ms,
-               "plain_ms": pms, "library_ms": lib})
-        record("banded_cor" + sfx, err, ms, pms,
-               X.element_size() * (Rn * n + S * bw), 2 * S * bw * n,
-               peak=PEAK_F32_PER_S if dt == torch.float32
-               else PEAK_F64_PER_S, launches=cnt, library_ms=lib,
-               note="library_ms is the reference's form: blocks of 2,048 "
-                    "rows times their rows and the next bw by torch.matmul,"
-                    " then torch.take_along_dim of the bw diagonals")
-        del X, kk, pp
+        Xd = torch.as_tensor(Xn, dtype=dt, device=dev)
+        for form, s0, S, R in spans:
+            X = Xd[s0:s0 + R].contiguous()
+            kk = varcov.banded_cor_cuda(X, S, bw)
+            pp = varcov.banded_cor_plain(X, S, bw)
+            diff = float((kk - pp).abs().max())
+            err = diff if dt == torch.float32 else \
+                diff / float(pp.abs().max())
+            ms = _time_ms(lambda: varcov.banded_cor_cuda(X, S, bw), 10)
+            pms = _time_ms(lambda: varcov.banded_cor_plain(X, S, bw), 3)
+            lib = _time_ms(lambda: library(X, S), 3)
+            tol = 1e-5 if dt == torch.float32 else 1e-12
+            check("banded_cor" + sfx, err <= tol,
+                  {"block": form or "band", "max_err": err, "S": S,
+                   "rows": R, "bw": bw, "n": n, "ms": ms, "plain_ms": pms,
+                   "library_ms": lib})
+            # the pairs inside the rows given (the rest are 0, not read)
+            pairs = sum(max(0, min(S, R - j - 1)) for j in range(bw))
+            record("banded_cor" + sfx, err, ms, pms,
+                   X.element_size() * (R * n + S * bw), 2 * pairs * n,
+                   peak=PEAK_F32_PER_S if dt == torch.float32
+                   else PEAK_F64_PER_S, launches=cnt, library_ms=lib,
+                   form=form,
+                   note="library_ms is the reference's form: blocks of "
+                        f"{blk} rows times their rows and the next bw "
+                        "by torch.matmul, then torch.take_along_dim of the "
+                        "bw diagonals")
+            del X, kk, pp
+        del Xd
 
 
 def _drive_bslmm(kernels, paths, td, geno, f64):

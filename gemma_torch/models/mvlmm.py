@@ -157,10 +157,12 @@ def _em_fit(reml: bool, it: _Iters, eval_, X0, Y, R, Vg0, Ve0, B0,
 def _out(S: int, d: int) -> dict:
     """The block's results; em_iters holds each lane's K9 iteration count
     in the ML (column 0) and REML (column 1) fit of its test, -1 where
-    the mode runs none."""
+    the mode runs none, and refined whether the -pnr refit took the lane
+    in that fit."""
     return dict(p_wald=np.zeros(S), p_lrt=np.zeros(S), p_score=np.zeros(S),
                 beta=np.zeros((S, d)), Vbeta=np.zeros((S, d, d)),
-                em_iters=np.full((S, 2), -1, np.int64))
+                em_iters=np.full((S, 2), -1, np.int64),
+                refined=np.zeros((S, 2), bool))
 
 
 def _put(out: dict, cp: core.CalcP, idx=None, p_key=None, p=None) -> None:
@@ -177,7 +179,7 @@ def mvlmm_assoc(eval_, X0, Y, Utx, null: MvlmmNull, mode: int, cfg,
     """Association statistics of one rotated (S, n) SNP block: the mode
     logic of mvlmm.cpp:3298-3353 with the p < -pnr refinement.  Returns
     host arrays p_wald/p_lrt/p_score (S,), beta (S, d), Vbeta (S, d, d)
-    and em_iters (S, 2) (see _out)."""
+    and em_iters and refined (S, 2) (see _out)."""
     d, S = Y.shape[0], Utx.shape[0]
     it = _Iters(cfg)
     speed = dtype == torch.float32
@@ -194,6 +196,7 @@ def mvlmm_assoc(eval_, X0, Y, Utx, null: MvlmmNull, mode: int, cfg,
         correction at that optimum (K14; the reference's
         mvlmm.py:484-506).  Returns (K10's result, the refined p, idx)."""
         idx = np.flatnonzero(p < cfg.p_nr)
+        out["refined"][idx, int(reml)] = True
         if not len(idx):
             return None, None, idx
         Ri = R[torch.as_tensor(idx, device=R.device)].contiguous()
@@ -270,6 +273,7 @@ def mvlmm_assoc_gxe(eval_, X0e, Y, Utx, Utxe, null: MvlmmNull, mode: int,
     def refine(reml: bool, p: np.ndarray, em: core.EmResult):
         """NR from the H1 EM's optimum for the lanes with p < -pnr."""
         idx = np.flatnonzero(p < cfg.p_nr)
+        out["refined"][idx, int(reml)] = True
         if not len(idx):
             return None, idx
         ti = torch.as_tensor(idx, device=R2.device)

@@ -49,6 +49,10 @@ def calc_neighbours(chr_, pos, cM, window_bp, window_cm, window_ns):
     return n_nb
 
 
+# rows correlated by one K16 launch on the streaming path (the reference's
+# block)
+BLOCK = 2048
+
 # ---------------------------------------------------------------------------
 # K16 banded_cor
 
@@ -87,7 +91,7 @@ def banded_cor(X: torch.Tensor, S: int, bw: int) -> torch.Tensor:
 
 def windowed_correlations_fetch(fetch, p: int, n: int, n_nb: np.ndarray,
                                 dtype: torch.dtype, device: torch.device,
-                                block: int = 2048):
+                                block: int = BLOCK):
     """Streaming windowed correlations: `fetch(lo, hi)` returns raw dosage
     rows (NaN missing), called with monotone lo (one file scan on a
     streaming backend).  Only `block + bw` normalised rows are held at

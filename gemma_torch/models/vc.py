@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from gemma_torch import kernels
-from gemma_torch.ops.center import center_matrix_w, center_vector_w
+from gemma_torch.ops.center import (center_matrix_w, center_vector_w,
+                                    scale_matrix)
 
 _F64 = torch.float64
 # matrices of one stack per K15 launch (PC_MAX_M in csrc/pair_colsum.cu)
@@ -111,7 +112,7 @@ def _he_core(K, W, y):
     r = n / (n - c)
     Kc = torch.stack([center_matrix_w(K[i], W) for i in range(m)])
     traceG_new = torch.diagonal(Kc, dim1=-2, dim2=-1).mean(-1)
-    K_scale = (Kc / traceG_new[:, None, None]).contiguous()
+    K_scale = torch.stack([scale_matrix(Kc[i]) for i in range(m)])
     del Kc
     y_c = center_vector_w(y, W)
     var_y = torch.var(y, correction=0)

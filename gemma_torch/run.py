@@ -503,7 +503,7 @@ def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
     n = ds.ni_test
     bs = _block_size(cfg, device, len(idx), n_axis=n, per_lane=rows)
     outs = dict(p_wald=[], p_lrt=[], p_score=[], beta=[], Vbeta=[],
-                em_iters=[])
+                em_iters=[], refined=[])
     with log.timer.phase("opt"):
         for s in range(0, len(idx), bs):
             sel = idx[s:s + bs]

@@ -7,8 +7,8 @@ It builds chip_smoke.py's phase (f) data (the releases.org protocol
 shape: n = 757, 10,775 SNPs, two traits) and its kinship, and for each
 operand type (float32, the speed mode's, and float64) runs what
 `-lmm 4 -n 1 2 -crt -pnr 0.9` runs on the block, kernel by kernel
-(K9-K11, then K14 on float64 copies of the same operands): the first
-fits, the -pnr 0.9 refit of each refined lane (EM, then Newton), its
+(K9-K11, then K14 on float64 copies of the same operands): the -pnr 0.9
+refit of each lane the float64 -crt run refined (EM, then Newton), its
 p-value and the corrected one.  It prints, for p_wald (REML) and p_lrt
 (ML): the refined lanes, how many part by more than 1e-3 before and after
 the correction, the largest gaps, how many refits end more than 1e-4
@@ -67,15 +67,19 @@ def main():
         cs._run(base + "-gk 1 -o MK".split(), "cuda")
         mvk = base + f"-k {td}/MK.cXX.txt -n 1 2 -lmm 1".split()
         cs._run(mvk + ["-o", "M1"], "cuda")
+        # the lanes the -crt path refines (its float64 run's first fits)
+        cs._run(base + f"-k {td}/MK.cXX.txt -n 1 2 -lmm 4 -crt -pnr 0.9 "
+                "-precision float64 -o MRd".split(), "cuda")
         ops = cs._mv_operands(mvk, cs.RESULTS["M1"]["snp_indices"], dev,
                               (torch.float32, F64))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    refined = cs.RESULTS["MRd"]["stats"]["refined"]
     for col, reml in (("p_wald", True), ("p_lrt", False)):
-        first = cs._first_stage(ops[F64], reml)
-        idx = torch.nonzero(first < 0.9).flatten()
+        idx = torch.as_tensor(np.flatnonzero(refined[:, int(reml)]),
+                              device=dev)
         r = {dt: _lanes(ops[dt], idx, reml, it) for dt in ops}
         (l32, p32, c32), (l64, p64, c64) = r[torch.float32], r[F64]
         gap, gap_c = np.abs(p32 - p64), np.abs(c32 - c64)

@@ -138,11 +138,14 @@ def test_crt_matches_reference(data, mode):
 
 def test_crt_changes_refined_lanes_only(data):
     """Against the same run without -crt: the lanes -pnr refines (p < 0.9
-    before the correction) take new p-values, the others keep theirs."""
+    before the correction; the results' `refined` column, ML then REML)
+    take new p-values, the others keep theirs."""
     plain = _port(data, "-lmm 4", "T4plain")
     crt = _port(data, "-lmm 4 -crt", "T4")
-    for col in ("p_wald", "p_lrt"):
-        refined = plain[col] < 0.9
+    np.testing.assert_array_equal(crt["refined"], plain["refined"])
+    for col, fit in (("p_wald", 1), ("p_lrt", 0)):
+        refined = plain["refined"][:, fit]
+        np.testing.assert_array_equal(refined, plain[col] < 0.9)
         assert refined.any() and (~refined).any()
         assert (crt[col][refined] != plain[col][refined]).all(), col
         assert (crt[col][~refined] == plain[col][~refined]).all(), col
