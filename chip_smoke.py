@@ -42,7 +42,19 @@
                   positions 3 kb apart and two kinships from `-gk -snps`
                   on the two halves of the SNPs: `-vc 1/2/3` with `-k`
                   and with `-mk` of both, `-calccor` and `-gw`, in float32
-                  and float64.
+                  and float64;
+     (i) cvt24    `-lmm 4` and `-lm 4` on the mouse set with `-c` of an
+                  intercept and 23 seeded normal columns, and `-lmm 4
+                  -gxe` with the first 22 of them (24 with env and x)
+                  (K2-K8's second instantiation, above 16 covariates), in
+                  float32 and float64;
+     (j) MQS      on phase (h)'s genotypes and phenotype: marginal
+                  z-scores in a `-beta` file, four `-cat` categories (the
+                  quarters of the SNPs), seeded `-wsnp` weights, `-wcat`
+                  per-category LD scores from phase (h)'s correlations;
+                  `-gq`, `-gs`, `-vc 1 -beta -wsnp`, `-vc 2 -beta -wcat`,
+                  `-vc 1 -study/-ref` and `-ci 1/2` (`-pve` from the
+                  card's float64 `-vc 1`), in float32 and float64.
    Every kernel's launch count is set to 0 just before each path and
    read just after; each kernel of the path must have launched.
 3. Checks the output against the port's own float64 path on the CPU on
@@ -70,7 +82,14 @@
    -vc estimates against the port's float64 CPU runs rel 1e-8, its
    float32 pve within 1e-3 of float64, REML's total pve within 3 se of
    the simulated 0.5, its float32 correlations within 1e-5 of float64
-   and -gw's equal to -calccor's.
+   and -gw's equal to -calccor's; (i)'s against the port's float64 CPU
+   run on the first 1024 SNPs (32 for -gxe): within 1e-3 in float32 (>=
+   97% finite), within 1e-6 in float64 with >= 99.9% the same NaN lanes;
+   (j)'s float64 -gs S and Svar (relative to each matrix's largest entry)
+   and every estimate of -vc/-ci against the port's float64 CPU runs rel
+   1e-8, float32 pve and se_pve within 1e-3 of float64, and the MQS total
+   pve within 0.15 of (h)'s HE total pve (-vc 1 -mk) and within 3 se of
+   the simulated 0.5.
 4. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main path's shapes (n = 1940, S = the run's
    block, c = 1, and c = 3 for K2-K7; the per-lane forms of K2-K7 at the
@@ -84,9 +103,14 @@
    own stacks (HE's against itself, REML's P against the stack, -k and
    -mk) and on three random symmetric 8,192² matrices made on the card,
    K16 on the whole band of phase (h)'s rows and on the path's first and
-   last blocks), with the tolerances below, and times both
-   (CUDA events, median after warm-up, L2 flushed between runs; the
-   plain mvLMM loops once, on the call compared).
+   last blocks; K2-K8 at c = 24, phase (i)'s covariates, on the first
+   2,048 lanes of the main path's block (K8 on the whole block), and
+   K2-K7's per-lane forms on the first 1,024 lanes of phase (i)'s -gxe
+   block; K15 on the MQS paths' stacks (A = K, and -vc 2's weighted A
+   against K) and K1's standardised form on the -ci paths' first block),
+   with the tolerances below, and times both (CUDA events, median after
+   warm-up, L2 flushed between runs; the plain mvLMM loops once, on the
+   call compared).
 5. Prints the card's name and power limit, the kernels line and, last,
    {"ok": true, "device": {...}}; the whole report is also written to
    build/chip_smoke.out.
@@ -195,10 +219,11 @@ TOL = {
     "banded_cor": "|cor - cor_plain| <= 1e-5",
     "banded_cor_f64": "max |k - p| <= 1e-12 max |p|",
 }
-# the per-lane forms of K2-K7 (GxE, gene mode) are held to their shared
-# forms' tolerances, but for the float32 tests: at GxE's 3 covariates
-# (1 + env + x) four columns are eliminated in float32, and the shared
-# c = 3 form already reached 9.9e-6 (PERF.md)
+# the per-lane forms of K2-K7 (GxE, gene mode) and the c = 24 forms of
+# K2-K8 are held to their shared forms' tolerances, but for the float32
+# tests: at GxE's 3 covariates (1 + env + x) four columns are eliminated
+# in float32, at c = 24 twenty-five, and the shared c = 3 form already
+# reached 9.9e-6 (PERF.md)
 TOL_LANE = {
     "wald_tail": "|p - p_plain| <= 3e-5, |beta - beta_plain| <= 1e-3 se",
     "score_tail": "|p - p_plain| <= 3e-5, |beta - beta_plain| <= 1e-3 se",
@@ -222,8 +247,21 @@ HOLD_ITERS = 2000
 # phase (h): variance components and correlations on the mouse genotypes;
 # K15 held on random symmetric operands at this n and stack
 VC_H2, VC_SEED, PC_N, PC_M = 0.5, 6, 8192, 3
+# phase (i): an intercept and CVT_N - 1 seeded normal covariates (a human
+# GWAS's sex, age, batch and principal components); K2-K8's c = 24 forms
+# held on the first CVT_LANES lanes of the main path's block, the
+# per-lane forms on the first CVT_GXE_LANES of the -gxe block; the -gxe
+# run checked on its first CVT_GXE_CHECK SNPs (the CPU's per-lane search
+# at c = 24 takes about a second a SNP at n = 1940)
+CVT_N, CVT_SEED, CVT_LANES = 24, 24, 2048
+CVT_GXE_LANES, CVT_GXE_CHECK = 1024, 32
+# phase (j): MQS on phase (h)'s genotypes and phenotype, MQS_CATS -cat
+# categories (the quarters of the SNPs)
+MQS_CATS, MQS_SEED = 4, 8
 RESULTS = {}             # -o tag → what batch_run returned
 PC_OPERANDS = {}         # K15's operands on the -vc paths, by form
+MQS_PC = {}              # K15's operands on the MQS paths, by form
+CI_RAW = {}              # K1's first raw block on the -ci paths, by type
 
 
 def _fail(msg):
@@ -1056,6 +1094,302 @@ def _drive_vc(kernels, paths, td, geno, f64):
     return counts, Xn
 
 
+def _hold_pair_colsum(A, B, sfx, cnt, form, record, check):
+    """K15 (sfx "" or "_f64") against its plain version on the stacks A
+    and B, timed beside torch.einsum; `form` None is the kernels line's
+    main row."""
+    import torch
+    from gemma_torch.models import vc
+    kk = vc.pair_colsum_cuda(A, B)
+    pp = vc.pair_colsum_plain(A, B)
+    err = float((kk - pp).abs().max() / pp.abs().max())
+    del kk, pp
+    ms = _time_ms(lambda: vc.pair_colsum_cuda(A, B), 10)
+    pms = _time_ms(lambda: vc.pair_colsum_plain(A, B), 3)
+    lib = _time_ms(lambda: torch.einsum("ist,jst->ijt", A, B), 3)
+    ma, mb, n = A.shape[0], B.shape[0], A.shape[-1]
+    same = A.data_ptr() == B.data_ptr()
+    check("pair_colsum" + sfx, err <= 1e-12,
+          {"block": form or "random", "max_rel_err": err, "n": n,
+           "ma": ma, "mb": mb, "B_is_A": same, "ms": ms,
+           "plain_ms": pms, "library_ms": lib})
+    record("pair_colsum" + sfx, err, ms, pms,
+           (ma + (0 if same else mb)) * n * n * A.element_size()
+           + 8 * ma * mb * n, 2 * ma * mb * n * n, peak=PEAK_F64_PER_S,
+           launches=cnt, library_ms=lib, form=form,
+           note="library_ms is torch.einsum('ist,jst->ijt', A, B) on "
+                "the same operands")
+
+
+def _drive_cvt(kernels, paths, td, common, kin, f64):
+    """Phase (i): -lmm 4 and -lm 4 with CVT_N covariates (an intercept and
+    CVT_N - 1 seeded normal columns), and -lmm 4 -gxe with the first
+    CVT_N - 2 of them (c = CVT_N with env and x: the per-lane forms), on
+    the mouse set, in both precisions on the card (K2-K8's second
+    instantiation, above 16 covariates), and their checks against the
+    port's float64 CPU run on the first CHECK_SNPS SNPs (CVT_GXE_CHECK for
+    -gxe): within 1e-3 (>= 97% finite) in float32, within 1e-6 with >=
+    99.9% the same NaN lanes in float64.  Returns the paths' launch counts
+    and the covariates."""
+    t_i = time.time()
+    rng = np.random.default_rng(CVT_SEED)
+    W = np.column_stack([np.ones(MOUSE_N),
+                         rng.normal(size=(MOUSE_N, CVT_N - 1))])
+    np.savetxt(f"{td}/cov24.txt", W, fmt="%.6f")
+    np.savetxt(f"{td}/cov22.txt", W[:, :CVT_N - 2], fmt="%.6f")
+    c24 = f"-c {td}/cov24.txt".split()
+    gxe22 = f"-c {td}/cov22.txt -gxe {td}/env.txt".split()
+    lane32 = ("lambda_grid", "lambda_solve", "wald_tail", "score_tail",
+              "lrt_tail")
+    lane64 = ("lambda_solve_f64", "wald_tail_f64", "score_tail_f64",
+              "lrt_tail")
+    counts = {
+        "f32": _drive(kernels, paths, "cvt24", [
+            ("lmm4_c24", common + kin + c24 + "-lmm 4 -o A24".split()),
+            ("lm4_c24", common + c24 + "-lm 4 -o L24".split())],
+            ("geno_prologue", "lambda_grid", "lambda_solve", "wald_tail",
+             "score_tail", "lrt_tail", "lm_tail")),
+        "f64": _drive(kernels, paths, "cvt24_f64", [
+            ("lmm4_c24_f64", common + kin + c24 + f64
+             + "-lmm 4 -o A24d".split()),
+            ("lm4_c24_f64", common + c24 + f64 + "-lm 4 -o L24d".split())],
+            ("geno_prologue_f64", "lambda_solve_f64", "wald_tail_f64",
+             "score_tail_f64", "lrt_tail", "lm_tail_f64")),
+        "gxe": _drive(kernels, paths, "gxe24", [
+            ("gxe_c24", common + kin + gxe22 + "-lmm 4 -o X24".split())],
+            ("geno_prologue",) + lane32),
+        "gxe_f64": _drive(kernels, paths, "gxe24_f64", [
+            ("gxe_c24_f64", common + kin + gxe22 + f64
+             + "-lmm 4 -o X24d".split())],
+            ("geno_prologue_f64",) + lane64),
+    }
+    t0 = time.time()
+    snps1 = f"-snps {td}/first.snps".split()
+    with open(f"{td}/gxe_first.snps", "w") as fh:
+        fh.write("\n".join(f"rs{j}" for j in range(CVT_GXE_CHECK)) + "\n")
+    _run(common + kin + c24 + snps1 + "-lmm 4 -o C24".split(), "cpu")
+    _run(common + c24 + snps1 + "-lm 4 -o CL24".split(), "cpu")
+    _run(common + kin + gxe22 + f"-snps {td}/gxe_first.snps -lmm 4 -o CX24"
+         .split(), "cpu")
+    chk = {"cpu_f64_seconds": time.time() - t0}
+    for tag, ref_tag, tol, same_nan in (
+            ("A24", "C24", 1e-3, None), ("A24d", "C24", 1e-6, 0.999),
+            ("L24", "CL24", 1e-3, None), ("L24d", "CL24", 1e-6, 0.999),
+            ("X24", "CX24", 1e-3, None), ("X24d", "CX24", 1e-6, 0.999)):
+        rs_r, ref_r = _read_assoc(f"{td}/{ref_tag}.assoc.txt")
+        rs_t, c_t = _read_assoc(f"{td}/{tag}.assoc.txt")
+        chk[tag] = _p_errors(_aligned(rs_t, c_t, rs_r), ref_r, tol, 0.97,
+                             same_nan=same_nan)
+        chk[tag]["lanes"] = len(rs_t)
+    chk["phase_i_seconds"] = time.time() - t_i
+    _say({"phase": "check_cvt24", "covariates": CVT_N, **chk,
+          "paths": {k: paths[k]["secs"] for k in (
+              "cvt24", "cvt24_f64", "gxe24", "gxe24_f64")}})
+    return counts, W
+
+
+def _synth_mqs(td, Xn):
+    """Phase (j)'s summary statistics on phase (h)'s genotypes and h²
+    VC_H2 phenotype: each SNP's marginal z-score on the standardised
+    genotypes in a -beta file (a1 a0 z n), MQS_CATS categories (the
+    quarters of the SNPs) in a -cat file, seeded -wsnp weights, and -wcat
+    LD scores: per category, the sum of r² over the SNP and its window in
+    that category, from phase (h)'s float64 -calccor correlations."""
+    p, n = Xn.shape
+    y = np.loadtxt(f"{td}/vc_pheno.txt")
+    z = Xn @ ((y - y.mean()) / y.std())
+    cat = np.arange(p) * MQS_CATS // p
+    with open(f"{td}/mqs_beta.txt", "w") as fh:
+        fh.write("rs\ta1\ta0\tz\tn\n")
+        fh.write("".join(f"rs{j}\tA\tT\t{z[j]:.6f}\t{n}\n"
+                         for j in range(p)))
+    head = "SNP\t" + "\t".join(f"c{k}" for k in range(MQS_CATS)) + "\n"
+    onehot = np.eye(MQS_CATS, dtype=int)[cat]
+    with open(f"{td}/mqs_cat.txt", "w") as fh:
+        fh.write(head + "".join(
+            f"rs{j}\t" + "\t".join(map(str, onehot[j])) + "\n"
+            for j in range(p)))
+    w = np.random.default_rng(MQS_SEED).uniform(0.5, 2.0, p)
+    with open(f"{td}/mqs_wsnp.txt", "w") as fh:
+        fh.write("".join(f"rs{j}\t{w[j]:.6f}\n" for j in range(p)))
+    cor = RESULTS["VCd"]
+    idx = cor["snp_indices"]
+    cq = cat[idx]
+    ld = np.eye(MQS_CATS)[cq]
+    for i, c in enumerate(cor["cors"]):
+        if len(c):
+            r2 = np.asarray(c, np.float64) ** 2
+            nb = np.arange(i + 1, i + 1 + len(c))
+            ld[i] += np.bincount(cq[nb], weights=r2, minlength=MQS_CATS)
+            ld[nb, cq[i]] += r2
+    with open(f"{td}/mqs_wcat.txt", "w") as fh:
+        fh.write(head + "".join(
+            f"rs{j}\t" + "\t".join(f"{v:.6g}" for v in row) + "\n"
+            for j, row in zip(idx, ld)))
+
+
+def _keep_ci_raw(store):
+    """Wrap models.ci.standardized_genotypes so that its first call in
+    each operand type keeps a copy of the raw block (K1's -ci standardised
+    form is held on the path's own operand).  Returns the function that
+    unwraps it."""
+    from gemma_torch.models import ci
+    wrapped = ci.standardized_genotypes
+
+    def keep(raw, n, dtype):
+        store.setdefault(dtype, (raw.clone(), n))
+        return wrapped(raw, n, dtype)
+
+    ci.standardized_genotypes = keep
+    return lambda: setattr(ci, "standardized_genotypes", wrapped)
+
+
+def _mqs_fields(r):
+    """The estimates of an MQS or -ci result, float64 arrays."""
+    return {f: np.atleast_1d(np.asarray(getattr(r, f), np.float64))
+            for f in ("pve", "se_pve", "sigma2persnp", "se_sigma2persnp",
+                      "enrich", "se_enrich", "pve_total", "se_pve_total")}
+
+
+def _max_rel(a, b):
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _drive_mqs(kernels, paths, td, geno, f64, Xn):
+    """Phase (j): the summary-statistics paths on phase (h)'s genotypes
+    and phenotype — -gq, -gs, -vc 1 -beta (with -wsnp), -vc 2 -beta (with
+    -wcat), -vc 1 -study/-ref and -ci 1/2 (-pve from the card's float64
+    -vc 1), with MQS_CATS categories, in both precisions on the card —
+    and their checks: float64 against the port's float64 CPU runs rel
+    1e-8, float32 pve and se_pve within 1e-3 of float64, the MQS total pve
+    within 0.15 of phase (h)'s HE total pve (-vc 1 -mk) and within 3 se
+    of the simulated VC_H2.  Returns the paths' launch counts."""
+    t_j = time.time()
+    _synth_mqs(td, Xn)
+    _say({"phase": "data_mqs", "seconds": time.time() - t_j})
+    vp = f"-g {geno} -p {td}/vc_pheno.txt -outdir {td} -no-check".split()
+    beta = f"-beta {td}/mqs_beta.txt".split()
+    cat = f"-cat {td}/mqs_cat.txt".split()
+    wsnp = f"-wsnp {td}/mqs_wsnp.txt".split()
+    wcat = f"-wcat {td}/mqs_wcat.txt".split()
+
+    def vc_paths(sfx, prec):
+        return [("gq" + sfx, beta + cat + f"-gq -outdir {td} -o MQ{sfx}"
+                 .split() + prec),
+                ("gs" + sfx, vp + cat + prec + f"-gs -o MG{sfx}".split()),
+                ("vc1_beta" + sfx, vp + beta + cat + wsnp + prec
+                 + f"-vc 1 -o MV1{sfx}".split()),
+                ("vc2_beta" + sfx, vp + beta + cat + wcat + prec
+                 + f"-vc 2 -o MV2{sfx}".split()),
+                ("vc1_study_ref" + sfx, f"-study {td}/MQ{sfx} -ref "
+                 f"{td}/MG{sfx} -vc 1 -outdir {td} -o MS{sfx}".split()
+                 + prec)]
+
+    def ci_paths(sfx, prec, pve):
+        base = vp + beta + cat + f"-ref {td}/MG{sfx} -pve".split() + pve
+        return [("ci1" + sfx, base + prec + f"-ci 1 -o MC1{sfx}".split()),
+                ("ci2" + sfx, base + wcat + prec
+                 + f"-ci 2 -o MC2{sfx}".split())]
+
+    restore = _keep_pair_colsum(MQS_PC)
+    restore_ci = _keep_ci_raw(CI_RAW)
+    try:
+        counts = {
+            "f64": _drive(kernels, paths, "mqs_f64", vc_paths("d", f64),
+                          ("geno_prologue_f64", "pair_colsum_f64"),
+                          keep=True),
+            "f32": _drive(kernels, paths, "mqs", vc_paths("", []),
+                          ("geno_prologue", "pair_colsum_f64"), keep=True)}
+        pve = [f"{v:.8g}" for v in RESULTS["MV1d"].pve]
+        counts["ci_f64"] = _drive(kernels, paths, "mqs_ci_f64",
+                                  ci_paths("d", f64, pve),
+                                  ("geno_prologue_f64",), keep=True)
+        counts["ci"] = _drive(kernels, paths, "mqs_ci", ci_paths("", [], pve),
+                              ("geno_prologue",), keep=True)
+    finally:
+        restore()
+        restore_ci()
+    _say({"phase": "e2e_mqs", "paths": {
+        k: v for k, v in paths.items() if k.startswith("mqs")}})
+
+    t0 = time.time()
+    # the CPU's runs, -ci on its own -gs panel
+    for _, argv in vc_paths("c", f64) + ci_paths("c", f64, pve):
+        _run(argv, "cpu", keep=True)
+    R = RESULTS
+    chk = {"cpu_f64_seconds": time.time() - t0, "pve_arg": pve}
+    failed = []
+    # S and Svar relative to each matrix's largest entry: an off-diagonal
+    # S_ij = tr(A_i K_j)/(tr A_i tr K_j) - 1/(n - c) cancels to ~1e-3 of
+    # the diagonal, so entry by entry the summation order shows at ~1e-7
+    S_card, S_cpu = R["MGd"], R["MGc"]
+    chk["gs_f64_vs_cpu_f64_max_rel"] = max(
+        float(np.max(np.abs(S_card[i] - S_cpu[i]))
+              / np.max(np.abs(S_cpu[i]))) for i in (0, 1))
+    if not chk["gs_f64_vs_cpu_f64_max_rel"] <= 1e-8 or \
+            not np.array_equal(S_card[2], S_cpu[2]):
+        failed.append("gs")
+    for key in ("MV1", "MV2", "MS", "MC1", "MC2"):
+        d, c, f = (_mqs_fields(R[key + t]) for t in ("d", "c", ""))
+        rel = max(_max_rel(d[x], c[x]) for x in d)
+        gap = max(float(np.max(np.abs(f[x] - d[x])))
+                  for x in ("pve", "se_pve"))
+        chk[key] = {"pve_card_f64": d["pve"].tolist(),
+                    "se_pve": d["se_pve"].tolist(),
+                    "pve_total": float(d["pve_total"][0]),
+                    "se_pve_total": float(d["se_pve_total"][0]),
+                    "f64_vs_cpu_f64_max_rel": rel,
+                    "f32_vs_f64_max_abs": gap}
+        if not rel <= 1e-8 or not gap <= 1e-3:
+            failed.append(key)
+    mqs, he = R["MV1d"], R["V1mkd"]
+    chk["mqs_total_pve"] = [mqs.pve_total, mqs.se_pve_total]
+    chk["he_mk_total_pve"] = [he.pve_total, he.se_pve_total]
+    if not (abs(mqs.pve_total - he.pve_total) <= 0.15
+            and abs(mqs.pve_total - VC_H2) <= 3 * mqs.se_pve_total):
+        failed.append("mqs_total_pve")
+    chk["phase_j_seconds"] = time.time() - t_j
+    _say({"phase": "check_mqs", **chk})
+    if failed:
+        raise RuntimeError(f"phase (j) checks failed: {failed}")
+    return counts
+
+
+def _hold_mqs(counts_j, record, check):
+    """K15 on the MQS paths' own stacks (n = 1,940, MQS_CATS categories,
+    float64 from the finished stacks on in both precisions: A = K on
+    -gs/-vc 1, A the LDSC-weighted stack on -vc 2's second pass), and
+    K1's standardised form on the -ci paths' first raw block, each
+    against its plain version."""
+    import torch
+    from gemma_torch.ops import pack2
+    for key in sorted(MQS_PC, key=str):
+        A, B = MQS_PC[key]
+        _hold_pair_colsum(A, B, "_f64", counts_j["f64"], "mqs_" + (
+            "k_k" if key[1] else "a_k"), record, check)
+    MQS_PC.clear()
+    for dt, name, tol, cnt in (
+            (torch.float32, "geno_prologue", 1e-5, counts_j["ci"]),
+            (torch.float64, "geno_prologue_f64", 1e-12, counts_j["ci_f64"])):
+        raw, n = CI_RAW.pop(dt)
+        args = (raw, n, pack2.CENTRE, True, n, dt)
+        x_k = pack2.prologue_cuda(*args)
+        x_p = pack2.prologue_plain(*args)
+        err = float((x_k - x_p).abs().max())
+        ms = _time_ms(lambda: pack2.prologue_cuda(*args), 20)
+        pms = _time_ms(lambda: pack2.prologue_plain(*args), 5)
+        S = raw.shape[0]
+        check(name, err <= tol, {"block": "ci_standardised",
+                                 "max_abs_err": err, "S": S, "n": n,
+                                 "wire": str(raw.dtype), "ms": ms,
+                                 "plain_ms": pms})
+        isz = torch.finfo(dt).bits // 8
+        record(name, err, ms, pms, raw.numel() * raw.element_size()
+               + isz * S * n, 6 * S * n,
+               peak=PEAK_F32_PER_S if dt == torch.float32
+               else PEAK_F64_PER_S, launches=cnt, form="ci_standardised")
+
+
 def _keep_pair_colsum(store):
     """Wrap models.vc.pair_colsum so that the first call of each form
     (operand type, B is A, stack sizes) keeps a copy of its operands in
@@ -1095,35 +1429,15 @@ def _hold_vc(counts_h, Xn, record, check):
     first and last blocks (varcov.BLOCK rows and the bw rows after them),
     beside the reference's block product and gather."""
     import torch
-    from gemma_torch.models import varcov, vc
+    from gemma_torch.models import varcov
     dev = torch.device("cuda")
-
-    def hold_pc(A, B, sfx, cnt, form):
-        kk = vc.pair_colsum_cuda(A, B)
-        pp = vc.pair_colsum_plain(A, B)
-        err = float((kk - pp).abs().max() / pp.abs().max())
-        del kk, pp
-        ms = _time_ms(lambda: vc.pair_colsum_cuda(A, B), 10)
-        pms = _time_ms(lambda: vc.pair_colsum_plain(A, B), 3)
-        lib = _time_ms(lambda: torch.einsum("ist,jst->ijt", A, B), 3)
-        ma, mb, n = A.shape[0], B.shape[0], A.shape[-1]
-        same = A.data_ptr() == B.data_ptr()
-        check("pair_colsum" + sfx, err <= 1e-12,
-              {"block": form or "random", "max_rel_err": err, "n": n,
-               "ma": ma, "mb": mb, "B_is_A": same, "ms": ms,
-               "plain_ms": pms, "library_ms": lib})
-        record("pair_colsum" + sfx, err, ms, pms,
-               (ma + (0 if same else mb)) * n * n * A.element_size()
-               + 8 * ma * mb * n, 2 * ma * mb * n * n, peak=PEAK_F64_PER_S,
-               launches=cnt, library_ms=lib, form=form,
-               note="library_ms is torch.einsum('ist,jst->ijt', A, B) on "
-                    "the same operands")
 
     for key in sorted(PC_OPERANDS, key=str):
         A, B = PC_OPERANDS[key]
         f64 = key[0] == torch.float64
-        hold_pc(A, B, "_f64" if f64 else "",
-                counts_h["vc_f64" if f64 else "vc"], _pc_form(key))
+        _hold_pair_colsum(A, B, "_f64" if f64 else "",
+                          counts_h["vc_f64" if f64 else "vc"], _pc_form(key),
+                          record, check)
     PC_OPERANDS.clear()
     gen = torch.Generator(device=dev).manual_seed(PC_N)
     A64 = torch.randn((PC_M, PC_N, PC_N), dtype=torch.float64, device=dev,
@@ -1132,7 +1446,7 @@ def _hold_vc(counts_h, Xn, record, check):
     for dt, sfx, cnt in ((torch.float64, "_f64", counts_h["vc_f64"]),
                          (torch.float32, "", counts_h["vc"])):
         A = A64 if dt == torch.float64 else A64.float()
-        hold_pc(A, A, sfx, cnt, None)
+        _hold_pair_colsum(A, A, sfx, cnt, None, record, check)
         del A
     del A64
     torch.cuda.empty_cache()
@@ -1692,6 +2006,10 @@ def main():
         counts_g = _drive_bslmm(kernels, paths, td, geno, f64)
         # (h) variance components and correlations on the mouse genotypes
         counts_h, vc_rows = _drive_vc(kernels, paths, td, geno, f64)
+        # (i) CVT_N covariates: K2-K8's second instantiation
+        counts_i, W24 = _drive_cvt(kernels, paths, td, common, kin, f64)
+        # (j) summary statistics (MQS) on phase (h)'s data
+        counts_j = _drive_mqs(kernels, paths, td, geno, f64, vc_rows)
 
         # 4. kernels against their plain versions, main-path shapes
         from gemma_torch.config import GemmaConfig
@@ -1749,7 +2067,7 @@ def main():
 
     def check(name, passed, line):
         tol = TOL_LANE.get(name) if "block" in line and line["block"] in (
-            "gxe", "gene") else None
+            "gxe", "gene", "c24", "gxe_c24") else None
         line = {"kernel": name, "tolerance": tol or TOL[name], **line}
         _say(line)
         if not passed:
@@ -2023,12 +2341,40 @@ def main():
             hold(c_label, data, nc, nf.l_mle, nf.l_mle, nf.logl_mle,
                  counts_a if dt == f32 else counts_b, rec=main)
 
+    # the c = 24 forms: phase (i)'s covariates on the first CVT_LANES lanes
+    # of the main path's block
+    from gemma_torch.models.lmm.engine import gene_batch_data, gxe_batch_data
+    for dt, hold, key in ((f32, hold32, "f32"), (f64, hold64, "f64")):
+        ev, U, tr, y = fac[dt]
+        Wd = torch.as_tensor(W24, dtype=dt, device=dev)
+        UtW, Uty = U.T @ Wd, U.T @ y
+        data = lk.build_batch_data(ev, UtW, Uty,
+                                   (xs[dt][:CVT_LANES] @ U).contiguous(),
+                                   CVT_N)
+        nf = fit_null(ev, UtW, Uty, tr, CVT_N)
+        hold("c24", data, CVT_N, nf.l_mle, nf.l_mle, nf.logl_mle,
+             counts_i[key], form="c24")
+        del data
+        # the per-lane forms at c = 24: phase (i)'s -gxe block, its first
+        # CVT_N - 2 covariates plus env and x, one ML null per SNP
+        W22 = torch.as_tensor(W24[:, :CVT_N - 2], dtype=dt, device=dev)
+        UtW = U.T @ W22
+        nf = fit_null(ev, UtW, Uty, tr, CVT_N - 2)
+        env_d = torch.as_tensor(env_np[ds.indicator_idv], dtype=dt,
+                                device=dev)
+        x = xs[dt][:CVT_GXE_LANES]
+        data = gxe_batch_data(ev, UtW, U.T @ env_d, Uty, x @ U,
+                              (x * env_d) @ U, CVT_N - 2)
+        null = opt.calc_lambda(data, CVT_N, True, False, 1e-5, 1e5, 10)
+        hold("gxe_c24", data, CVT_N, nf.l_mle, null.lam, null.logf,
+             counts_i["gxe" if dt == f32 else "gxe_f64"], form="gxe_c24")
+        del data
+
     # the per-lane forms: the GxE block (each SNP's covariates [1, env,
     # x], the interaction as predictor, one ML null per SNP; the score at
     # the covariate-only null) and the gene block (each gene a response,
     # the phenotype the one predictor, one null per gene for the score
     # and the LRT), float32 and float64
-    from gemma_torch.models.lmm.engine import gene_batch_data, gxe_batch_data
     from gemma_torch.run import _lane_rows
     S_gxe = _block_size(cfg, dev, len(idx), n_axis=n,
                         per_lane=_lane_rows(4, 4))  # c = 1 plus env, x
@@ -2053,14 +2399,18 @@ def main():
              counts_e["gene" + tag], form="gene")
         del data
 
-    # K8 on the -lm path's SNP block and on the gene rows
+    # K8 on the -lm path's SNP block and on the gene rows, and on the SNP
+    # block with phase (i)'s CVT_N covariates
     for dt, name, tol_p, tol_b in ((f32, "lm_tail", 1e-6, 1e-5),
                                    (f64, "lm_tail_f64", 1e-12, 1e-10)):
         _, _, _, y = fac[dt]
-        Wd = torch.ones((n, 1), dtype=dt, device=dev)
+        W1 = torch.ones((n, 1), dtype=dt, device=dev)
         E = torch.as_tensor(expr_np[:, ds.indicator_idv], dtype=dt,
                             device=dev).contiguous()
-        for rows, gene in ((xs[dt], False), (E, True)):
+        for rows, gene, Wd in ((xs[dt], False, W1), (E, True, W1),
+                               (xs[dt], False, torch.as_tensor(
+                                   W24, dtype=dt, device=dev))):
+            c24 = Wd.shape[1] == CVT_N
             consts = lm.lm_consts(Wd, y)
             args = (rows, y, Wd, consts, gene, False)
             k_out = lm.lm_tail_cuda(*args)
@@ -2076,18 +2426,22 @@ def main():
             S_ = rows.shape[0]
             check(name, err <= tol_p and beta_se <= tol_b and same_nan,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
-                   "rows": "genes" if gene else "snps", "S": S_, "ms": ms,
-                   "plain_ms": pms})
+                   "rows": "genes" if gene else "snps", "c": Wd.shape[1],
+                   "S": S_, "ms": ms, "plain_ms": pms})
             isz = torch.finfo(dt).bits // 8
+            nc = Wd.shape[1]
             record(name, err, ms, pms,
-                   isz * (S_ * n + 2 * n + 5 * S_) + 8 * 3,
-                   2 * 3 * S_ * n, peak=PEAK_F64_PER_S,
-                   launches=counts_e["lm"],
-                   form="gene" if gene else None)
+                   isz * (S_ * n + (1 + nc) * n + 5 * S_)
+                   + 8 * (nc * nc + nc + 1),
+                   2 * (2 + nc) * S_ * n, peak=PEAK_F64_PER_S,
+                   launches=counts_i["f32" if dt == f32 else "f64"] if c24
+                   else counts_e["lm"],
+                   form="c24" if c24 else "gene" if gene else None)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)
     _hold_crt(mv_ops, counts_f, record, check)
     _hold_bslmm(counts_g, record, check)
     _hold_vc(counts_h, vc_rows, record, check)
+    _hold_mqs(counts_j, record, check)
 
     for entry in results:
         if entry["name"] in per_lane:

@@ -19,10 +19,12 @@
 #include <math.h>
 #include <stdint.h>
 
+// The covariate kernels (K2-K8) are instantiated twice: for at most
+// GT_MAX_CVT covariates, the code they always ran, and for at most
+// GT_WIDE_CVT, which a launch takes only above GT_MAX_CVT.  GtDims sizes
+// the per-block and per-thread arrays of an instantiation.
 #define GT_MAX_CVT 16
-#define GT_MAX_NI ((GT_MAX_CVT + 3) * (GT_MAX_CVT + 2) / 2)
-#define GT_MAX_C1 (GT_MAX_CVT + 1)
-#define GT_MAX_M (GT_MAX_C1 * (GT_MAX_C1 + 1) / 2)
+#define GT_WIDE_CVT 32
 #define GT_THREADS 256
 #define GT_WARPS (GT_THREADS / 32)
 
@@ -43,6 +45,40 @@ __device__ __forceinline__ float gt_max(float a, float b) {
 }
 __device__ __forceinline__ double gt_max(double a, double b) {
   return fmax(a, b);
+}
+
+template <int MC>
+struct GtDims {
+  static constexpr int NI = (MC + 3) * (MC + 2) / 2;  // flat Pab index
+  static constexpr int C1 = MC + 1;                   // covariates and y
+  static constexpr int M = C1 * (C1 + 1) / 2;         // {W,y} products
+};
+
+// A block's working set S in shared memory: a static __shared__ object
+// where it fits the 48 KB that static shared memory may take, else the
+// dynamic shared memory that gt_smem_bytes sizes at the launch (the
+// float64 working sets of the GT_WIDE_CVT instantiations).
+#define GT_STATIC_SMEM 49152
+
+template <typename S>
+__device__ __forceinline__ S& gt_smem() {
+  if constexpr (sizeof(S) <= GT_STATIC_SMEM) {
+    __shared__ S s;
+    return s;
+  } else {
+    extern __shared__ __align__(16) unsigned char gt_dyn_smem[];
+    return *reinterpret_cast<S*>(gt_dyn_smem);
+  }
+}
+
+// The dynamic shared memory a launch of `kernel` needs for S (0 where S
+// is static); raises the kernel's limit to it first.
+template <typename S, typename K>
+inline int gt_smem_bytes(K kernel) {
+  if (sizeof(S) <= GT_STATIC_SMEM) return 0;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)sizeof(S));
+  return (int)sizeof(S);
 }
 
 struct PabTables {
@@ -180,12 +216,13 @@ __device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
   }
 }
 
-// Shared memory of one SNP's test rows (K4, K5).
-template <typename T>
+// Shared memory of one SNP's test rows (K4, K5), for at most MC
+// covariates.
+template <typename T, int MC>
 struct TestSmem {
   T red[GT_WARPS * 8];
-  T q[GT_MAX_M + GT_MAX_C1 + 1];
-  T rows[2][GT_MAX_NI];
+  T q[GtDims<MC>::M + GtDims<MC>::C1 + 1];
+  T rows[2][GtDims<MC>::NI];
 };
 
 // The entries of the CalcPab rows that the Wald and score tests read:
@@ -199,12 +236,12 @@ struct TestRows {
 // over n (hi = 1/(l·eval + 1)), then the CalcPab recurrence in shared
 // memory, threads parallel over the flat index.  Every thread of the
 // block calls it and gets the same values.
-template <typename T>
+template <typename T, int MC>
 __device__ inline TestRows<T> gt_test_rows(T l, const T* eval, const T* UtWy,
                                            const T* wy, const T* x,
                                            const int* tab, int n_cvt, int n,
                                            int M, int xx_pos, int xy_pos,
-                                           TestSmem<T>& sm) {
+                                           TestSmem<T, MC>& sm) {
   const int C1 = n_cvt + 1;
   auto f = [&](int qi, int i) -> T {
     const T hi = T(1) / (l * eval[i] + T(1));

@@ -17,10 +17,14 @@
 // local arrays and writes dev1.  Bound: bytes — the products are read
 // once (S·2·G·(c+2)·4 bytes) and d1f written once; the recurrence is
 // O((c+1)·n_index) flops per thread.  Rows live in per-thread local
-// arrays sized for the largest n_cvt (GT_MAX_CVT); at c = 1 only 6 of
-// their entries are touched, so they stay in L1.
+// arrays sized for the instantiation's bound MC: GT_MAX_CVT (four rows
+// of 171 floats, 2.7 KB a thread), or GT_WIDE_CVT above it (595 floats,
+// 9.5 KB a thread, which the CUDA driver reserves for every resident
+// thread); at c = 1 only 6 of their entries are touched, so they stay
+// in L1.
 #include "common.cuh"
 
+template <int MC>
 __global__ void lambda_grid_kernel(const float* __restrict__ xcross,
                                    const float* __restrict__ xx,
                                    const float* __restrict__ shared,
@@ -36,7 +40,8 @@ __global__ void lambda_grid_kernel(const float* __restrict__ xcross,
   const PabTables t = gt_tables(tab, n_cvt);
   const int ni = gt_n_index(n_cvt);
   const int C1 = n_cvt + 1;
-  float a0[GT_MAX_NI], a1[GT_MAX_NI], b0[GT_MAX_NI], b1[GT_MAX_NI];
+  float a0[GtDims<MC>::NI], a1[GtDims<MC>::NI], b0[GtDims<MC>::NI],
+      b1[GtDims<MC>::NI];
   float* pab = a0;
   float* ppab = a1;
   float* npab = b0;
@@ -93,9 +98,13 @@ extern "C" int lambda_grid_launch(const void* xcross, const void* xx,
                                   int n_cvt, int S, int G, int M, int n,
                                   int calc_null, int reml, int wy_lane,
                                   void* d1f, void* stream) {
+  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
+  auto kern = n_cvt <= GT_MAX_CVT ? lambda_grid_kernel<GT_MAX_CVT>
+                                  : lambda_grid_kernel<GT_WIDE_CVT>;
   if (S > 0 && G > 0) {
     dim3 grid((S + 127) / 128, G);
-    lambda_grid_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+    kern<<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const float*)xcross, (const float*)xx, (const float*)shared,
         (const float*)trace_hi, (const float*)lam, (const int*)tab, n_cvt, S,
         G, M, n, calc_null, reml, wy_lane, (float*)d1f);

@@ -39,7 +39,7 @@
 // gene or a GxE lane is often flat at small λ, and float32 cannot tell
 // its candidates apart: float32 sums left gene-mode p-values up to 1e-2
 // from float64 at n = 1,940 (scripts/lane_f32_gap.py, PERF.md).
-template <typename T>
+template <typename T, int MC>
 __global__ void __launch_bounds__(GT_THREADS)
 lambda_solve_kernel(const float* __restrict__ d1f, const T* __restrict__ fine,
                     int n_region, int refine, const float* __restrict__ eval,
@@ -51,7 +51,7 @@ lambda_solve_kernel(const float* __restrict__ d1f, const T* __restrict__ fine,
                     int wstride, int xstride, T l_min, T l_max, T epsrel,
                     int max_iter, T logf_const, float* lam_out,
                     float* logf_out) {
-  __shared__ SolveSmem<T> sm;
+  SolveSmem<T, MC>& sm = gt_smem<SolveSmem<T, MC>>();
   const int s = blockIdx.x;
   SolveCtx<float, T> c;
   c.eval = eval;
@@ -137,7 +137,40 @@ lambda_solve_kernel(const float* __restrict__ d1f, const T* __restrict__ fine,
   }
 }
 
+template <int MC>
+static void lambda_solve_run(const void* d1f, const void* fine, int n_region,
+                             int refine, const void* eval, const void* UtWy,
+                             const void* wy, const void* Utx, const void* tab,
+                             int n_cvt, int S, int n, int M, int calc_null,
+                             int reml, int ustride, int wstride, int xstride,
+                             int wide, double l_min, double l_max,
+                             double epsrel, int max_iter, double logf_const,
+                             void* lam_out, void* logf_out,
+                             cudaStream_t stream) {
+  if (wide) {
+    auto kern = lambda_solve_kernel<double, MC>;
+    const int smem = gt_smem_bytes<SolveSmem<double, MC>>(kern);
+    kern<<<S, GT_THREADS, smem, stream>>>(
+        (const float*)d1f, (const double*)fine, n_region, refine,
+        (const float*)eval, (const float*)UtWy, (const float*)wy,
+        (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
+        ustride, wstride, xstride, l_min, l_max, epsrel, max_iter,
+        logf_const, (float*)lam_out, (float*)logf_out);
+  } else {
+    auto kern = lambda_solve_kernel<float, MC>;
+    const int smem = gt_smem_bytes<SolveSmem<float, MC>>(kern);
+    kern<<<S, GT_THREADS, smem, stream>>>(
+        (const float*)d1f, (const float*)fine, n_region, refine,
+        (const float*)eval, (const float*)UtWy, (const float*)wy,
+        (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
+        ustride, wstride, xstride, (float)l_min, (float)l_max,
+        (float)epsrel, max_iter, (float)logf_const, (float*)lam_out,
+        (float*)logf_out);
+  }
+}
+
 // `fine` is the float32 grid (wide = 0) or the float64 one (wide = 1).
+// Above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs.
 extern "C" int lambda_solve_launch(const void* d1f, const void* fine,
                                    int n_region, int refine,
                                    const void* eval, const void* UtWy,
@@ -149,21 +182,14 @@ extern "C" int lambda_solve_launch(const void* d1f, const void* fine,
                                    double epsrel, int max_iter,
                                    double logf_const, void* lam_out,
                                    void* logf_out, void* stream) {
-  if (S > 0 && wide)
-    lambda_solve_kernel<double><<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)d1f, (const double*)fine, n_region, refine,
-        (const float*)eval, (const float*)UtWy, (const float*)wy,
-        (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
-        ustride, wstride, xstride, l_min, l_max, epsrel, max_iter,
-        logf_const, (float*)lam_out, (float*)logf_out);
-  else if (S > 0)
-    lambda_solve_kernel<float><<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)d1f, (const float*)fine, n_region, refine,
-        (const float*)eval, (const float*)UtWy, (const float*)wy,
-        (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
-        ustride, wstride, xstride, (float)l_min, (float)l_max,
-        (float)epsrel, max_iter, (float)logf_const, (float*)lam_out,
-        (float*)logf_out);
+  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
+  if (S > 0)
+    (n_cvt <= GT_MAX_CVT ? lambda_solve_run<GT_MAX_CVT>
+                         : lambda_solve_run<GT_WIDE_CVT>)(
+        d1f, fine, n_region, refine, eval, UtWy, wy, Utx, tab, n_cvt, S, n,
+        M, calc_null, reml, ustride, wstride, xstride, wide, l_min, l_max,
+        epsrel, max_iter, logf_const, lam_out, logf_out,
+        (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -30,9 +30,11 @@
 #include "lmm_lane.cuh"
 
 typedef SolveCtx<double, double> Ctx64;
-typedef SolveSmem<double> Smem64;
+template <int MC>
+using Smem64 = SolveSmem<double, MC>;
 
-__device__ __forceinline__ double gt_dev1(const Ctx64& c, Smem64& sm,
+template <int MC>
+__device__ __forceinline__ double gt_dev1(const Ctx64& c, Smem64<MC>& sm,
                                           double lam) {
   double d1, d2;
   gt_dev12(c, sm, lam, &d1, &d2, 2);
@@ -40,7 +42,8 @@ __device__ __forceinline__ double gt_dev1(const Ctx64& c, Smem64& sm,
 }
 
 // Pab-form (RE)ML log-likelihood (LogRL_f / LogL_f, lmm.cpp:566-642).
-__device__ double gt_logf_pab(const Ctx64& c, Smem64& sm, double lam,
+template <int MC>
+__device__ double gt_logf_pab(const Ctx64& c, Smem64<MC>& sm, double lam,
                               const double* iab) {
   const int M = c.M, C1 = c.n_cvt + 1;
   auto f = [&](int q, int i) -> double {
@@ -90,7 +93,8 @@ __device__ __forceinline__ double gt_nz(double v) { return v != 0.0 ? v : 1.0; }
 // GSL Brent-Dekker on [lo, hi] (roots/brent.c, as _brent_batched runs
 // it): stops once gsl_root_test_interval(epsabs = 0, epsrel) passes on
 // (b, c).  Returns b; *converged is false when the cap was hit.
-__device__ double gt_brent(const Ctx64& c, Smem64& sm, double lo, double hi,
+template <int MC>
+__device__ double gt_brent(const Ctx64& c, Smem64<MC>& sm, double lo, double hi,
                            double flo, double fhi, double epsrel,
                            int max_iter, bool* converged) {
   const double eps = 2.220446049250313e-16;  // DBL_EPSILON
@@ -163,6 +167,7 @@ __device__ double gt_brent(const Ctx64& c, Smem64& sm, double lo, double hi,
   return b;
 }
 
+template <int MC>
 __global__ void __launch_bounds__(GT_THREADS)
 lambda_solve_f64_kernel(const double* __restrict__ grid, int n_region,
                         const double* __restrict__ eval,
@@ -177,7 +182,7 @@ lambda_solve_f64_kernel(const double* __restrict__ grid, int n_region,
                         int brent_max_iter, int newton_max_iter,
                         double logf_const, double* lam_out,
                         double* logf_out) {
-  __shared__ Smem64 sm;
+  Smem64<MC>& sm = gt_smem<Smem64<MC>>();
   const int s = blockIdx.x;
   Ctx64 c;
   c.eval = eval;
@@ -271,8 +276,15 @@ extern "C" int lambda_solve_f64_launch(
     double l_max, double brent_epsrel,
     double newton_epsrel, int brent_max_iter, int newton_max_iter,
     double logf_const, void* lam_out, void* logf_out, void* stream) {
+  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
+  auto kern = n_cvt <= GT_MAX_CVT ? lambda_solve_f64_kernel<GT_MAX_CVT>
+                                  : lambda_solve_f64_kernel<GT_WIDE_CVT>;
+  const int smem = n_cvt <= GT_MAX_CVT
+                       ? gt_smem_bytes<Smem64<GT_MAX_CVT>>(kern)
+                       : gt_smem_bytes<Smem64<GT_WIDE_CVT>>(kern);
   if (S > 0)
-    lambda_solve_f64_kernel<<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
+    kern<<<S, GT_THREADS, smem, (cudaStream_t)stream>>>(
         (const double*)grid, n_region, (const double*)eval,
         (const double*)UtWy, (const double*)wy, (const double*)Utx,
         (const double*)iab_logdiag, (const int*)tab, n_cvt, n, M, calc_null,

@@ -27,7 +27,7 @@
 
 #define LM_WARPS 8
 
-template <typename T>
+template <typename T, int MC>
 __global__ void __launch_bounds__(LM_WARPS * 32)
 lm_tail_kernel(const T* __restrict__ rows, const T* __restrict__ v,
                const T* __restrict__ W, const double* __restrict__ WtWi,
@@ -39,31 +39,31 @@ lm_tail_kernel(const T* __restrict__ rows, const T* __restrict__ v,
   const int s = blockIdx.x * LM_WARPS + (threadIdx.x >> 5);
   if (s >= S) return;  // the whole warp leaves together
   const T* r = rows + (long)s * n;
-  double rr = 0.0, rv = 0.0, rw[GT_MAX_CVT];
+  double rr = 0.0, rv = 0.0, rw[MC];
 #pragma unroll
-  for (int a = 0; a < GT_MAX_CVT; ++a) rw[a] = 0.0;
+  for (int a = 0; a < MC; ++a) rw[a] = 0.0;
   for (int i = lane; i < n; i += 32) {
     const double ri = (double)r[i];
     rr += ri * ri;
     rv += ri * (double)v[i];
 #pragma unroll
-    for (int a = 0; a < GT_MAX_CVT; ++a)
+    for (int a = 0; a < MC; ++a)
       if (a < c) rw[a] += ri * (double)W[(long)i * c + a];
   }
   rr = gt_warp_sum(rr);
   rv = gt_warp_sum(rv);
 #pragma unroll
-  for (int a = 0; a < GT_MAX_CVT; ++a)
+  for (int a = 0; a < MC; ++a)
     if (a < c) rw[a] = gt_warp_sum(rw[a]);  // c is the same for all lanes
   if (lane != 0) return;
 
   double q = 0.0, b = 0.0;  // r'W (W'W)^-1 W'r and r'W (W'W)^-1 W'v
 #pragma unroll
-  for (int a = 0; a < GT_MAX_CVT; ++a) {
+  for (int a = 0; a < MC; ++a) {
     if (a >= c) continue;
     double t = 0.0;
 #pragma unroll
-    for (int k = 0; k < GT_MAX_CVT; ++k)
+    for (int k = 0; k < MC; ++k)
       if (k < c) t += WtWi[a * c + k] * rw[k];
     q += rw[a] * t;
     b += rw[a] * WtWi_Wtv[a];
@@ -90,9 +90,13 @@ static int gt_lm_tail_run(const void* rows, const void* v, const void* W,
                           const void* vPwv, int S, int n, int c, int gene,
                           int se_score, void* beta, void* se, void* pw,
                           void* pl, void* ps, void* stream) {
+  if (c > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
+  auto kern = c <= GT_MAX_CVT ? lm_tail_kernel<T, GT_MAX_CVT>
+                              : lm_tail_kernel<T, GT_WIDE_CVT>;
   if (S > 0)
-    lm_tail_kernel<T><<<(S + LM_WARPS - 1) / LM_WARPS, LM_WARPS * 32, 0,
-                        (cudaStream_t)stream>>>(
+    kern<<<(S + LM_WARPS - 1) / LM_WARPS, LM_WARPS * 32, 0,
+           (cudaStream_t)stream>>>(
         (const T*)rows, (const T*)v, (const T*)W, (const double*)WtWi,
         (const double*)WtWi_Wtv, (const double*)vPwv, S, n, c, gene,
         se_score, (T*)beta, (T*)se, (T*)pw, (T*)pl, (T*)ps);

@@ -20,8 +20,6 @@
 
 #include "common.cuh"
 
-#define GT_MAX_Q (3 * GT_MAX_M + 3 * GT_MAX_C1 + 5)
-#define GT_MAX_NG (GT_MAX_C1 * (GT_MAX_C1 + 1) / 2)
 
 template <typename Tin, typename T>
 struct SolveCtx {
@@ -34,22 +32,30 @@ struct SolveCtx {
   T logf_const;     // the constant term of (RE)ML logf
 };
 
-template <typename T>
+// A lane's working set for at most MC covariates: Q block sums, the
+// recurrence rows of three weight powers (twice), the Gram, its solve and
+// the NG index pairs of its upper triangle.  For MC = GT_WIDE_CVT the
+// float64 set is 56.9 KB, above static shared memory's 48 KB, so those
+// launches take it as dynamic shared memory (gt_smem).
+template <typename T, int MC>
 struct SolveSmem {
+  static constexpr int C1 = GtDims<MC>::C1;
+  static constexpr int Q = 3 * GtDims<MC>::M + 3 * C1 + 5;
+  static constexpr int NG = C1 * (C1 + 1) / 2;
   T red[GT_WARPS * 8];
-  T q[GT_MAX_Q];
-  T rows[6][GT_MAX_NI];
-  T G[GT_MAX_C1 * GT_MAX_C1];
-  T beta[GT_MAX_C1];
-  int pa[GT_MAX_NG];
-  int pb[GT_MAX_NG];
+  T q[Q];
+  T rows[6][GtDims<MC>::NI];
+  T G[C1 * C1];
+  T beta[C1];
+  int pa[NG];
+  int pb[NG];
   T bc[4];
 };
 
 // The (a, b) index pairs of the upper triangle of the CZ×CZ Gram, where
 // CZ counts the covariates plus x for the alternative model.
-template <typename T>
-__device__ inline void gt_gram_pairs(SolveSmem<T>& sm, int CZ) {
+template <typename T, int MC>
+__device__ inline void gt_gram_pairs(SolveSmem<T, MC>& sm, int CZ) {
   if (threadIdx.x == 0) {
     int q = 0;
     for (int a = 0; a < CZ; ++a)
@@ -65,8 +71,8 @@ __device__ inline void gt_gram_pairs(SolveSmem<T>& sm, int CZ) {
 // d logL/dλ at lam and, with P = 3, d² logL/dλ² (LogRL_dev12 /
 // LogL_dev12); P = 2 gives d1 alone (LogRL_dev1 / LogL_dev1), the same
 // arithmetic for d1.
-template <typename Tin, typename T>
-__device__ void gt_dev12(const SolveCtx<Tin, T>& c, SolveSmem<T>& sm, T lam,
+template <typename Tin, typename T, int MC>
+__device__ void gt_dev12(const SolveCtx<Tin, T>& c, SolveSmem<T, MC>& sm, T lam,
                          T* d1, T* d2, int P) {
   const int M = c.M, C1 = c.n_cvt + 1;
   const Tin* eval = c.eval;
@@ -192,8 +198,8 @@ __device__ T gt_cholesky_logdet(T* G, int CZ) {
 
 // Σ log|L0_ii| of the identity-weighted Gram (λ-independent REML piece).
 // Needs the Gram pairs (gt_gram_pairs).
-template <typename Tin, typename T>
-__device__ T gt_logdet0(const SolveCtx<Tin, T>& c, SolveSmem<T>& sm,
+template <typename Tin, typename T, int MC>
+__device__ T gt_logdet0(const SolveCtx<Tin, T>& c, SolveSmem<T, MC>& sm,
                         int CZ) {
   const int nG = CZ * (CZ + 1) / 2;
   auto f = [&](int q, int i) -> T {
@@ -215,8 +221,8 @@ __device__ T gt_logdet0(const SolveCtx<Tin, T>& c, SolveSmem<T>& sm,
 
 // logf_stable: (RE)ML log-likelihood via the explicit GLS residual.
 // Needs the Gram pairs (gt_gram_pairs).
-template <typename Tin, typename T>
-__device__ T gt_logf_stable(const SolveCtx<Tin, T>& c, SolveSmem<T>& sm,
+template <typename Tin, typename T, int MC>
+__device__ T gt_logf_stable(const SolveCtx<Tin, T>& c, SolveSmem<T, MC>& sm,
                             T lam, T logdet0) {
   const int CZ = c.calc_null ? c.n_cvt : c.n_cvt + 1;
   const int C1 = c.n_cvt + 1;

@@ -30,6 +30,7 @@
 #include "lmm_lane.cuh"
 #include "tails.cuh"
 
+template <int MC>
 __global__ void __launch_bounds__(GT_THREADS)
 lrt_recompute_kernel(const float* __restrict__ lam,
                      const float* __restrict__ eval,
@@ -38,7 +39,7 @@ lrt_recompute_kernel(const float* __restrict__ lam,
                      int calc_null, int ustride, int xstride,
                      double logf_const, const double* __restrict__ logl0,
                      int l0_stride, double* logl_out, double* p_out) {
-  __shared__ SolveSmem<double> sm;
+  SolveSmem<double, MC>& sm = gt_smem<SolveSmem<double, MC>>();
   const int s = blockIdx.x;
   SolveCtx<float, double> c;
   c.eval = eval;
@@ -80,12 +81,20 @@ extern "C" int lrt_tail_launch(int recompute, const void* lam,
                                double logf_const, const void* logl_in,
                                const void* logl0, int l0_stride,
                                void* logl_out, void* p_out, void* stream) {
-  if (S > 0 && recompute)
-    lrt_recompute_kernel<<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
+  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
+  auto kern = n_cvt <= GT_MAX_CVT ? lrt_recompute_kernel<GT_MAX_CVT>
+                                  : lrt_recompute_kernel<GT_WIDE_CVT>;
+  if (S > 0 && recompute) {
+    const int smem =
+        n_cvt <= GT_MAX_CVT
+            ? gt_smem_bytes<SolveSmem<double, GT_MAX_CVT>>(kern)
+            : gt_smem_bytes<SolveSmem<double, GT_WIDE_CVT>>(kern);
+    kern<<<S, GT_THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)lam, (const float*)eval, (const float*)UtWy,
         (const float*)Utx, n_cvt, n, calc_null, ustride, xstride, logf_const,
         (const double*)logl0, l0_stride, (double*)logl_out, (double*)p_out);
-  else if (S > 0)
+  } else if (S > 0)
     lrt_tail_only_kernel<<<(S + GT_THREADS - 1) / GT_THREADS, GT_THREADS, 0,
                            (cudaStream_t)stream>>>(
         (const double*)logl_in, S, (const double*)logl0, l0_stride,

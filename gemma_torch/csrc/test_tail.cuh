@@ -16,7 +16,7 @@
 
 #include "tails.cuh"
 
-template <typename T, bool SCORE>
+template <typename T, bool SCORE, int MC>
 __global__ void __launch_bounds__(GT_THREADS)
 test_tail_kernel(const T* __restrict__ lam, const T* __restrict__ eval,
                  const T* __restrict__ UtWy, const T* __restrict__ wy,
@@ -24,7 +24,7 @@ test_tail_kernel(const T* __restrict__ lam, const T* __restrict__ eval,
                  int n_cvt, int n, int M, int xx_pos, int xy_pos,
                  int lam_stride, int ustride, int wstride, int xstride,
                  T* beta_out, T* se_out, T* p_out) {
-  __shared__ TestSmem<T> sm;
+  __shared__ TestSmem<T, MC> sm;
   const int s = blockIdx.x;
   const TestRows<T> r = gt_test_rows<T>(
       lam[(long)s * lam_stride], eval, UtWy + (long)s * ustride,
@@ -51,8 +51,12 @@ static int gt_test_tail_run(const void* lam, const void* eval,
                             int lam_stride, int ustride, int wstride,
                             int xstride, void* beta, void* se, void* p,
                             void* stream) {
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
+  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
+  auto kern = n_cvt <= GT_MAX_CVT ? test_tail_kernel<T, SCORE, GT_MAX_CVT>
+                                  : test_tail_kernel<T, SCORE, GT_WIDE_CVT>;
   if (S > 0)
-    test_tail_kernel<T, SCORE><<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
+    kern<<<S, GT_THREADS, 0, (cudaStream_t)stream>>>(
         (const T*)lam, (const T*)eval, (const T*)UtWy, (const T*)wy,
         (const T*)Utx, (const int*)tab, n_cvt, n, M, xx_pos, xy_pos,
         lam_stride, ustride, wstride, xstride, (T*)beta, (T*)se, (T*)p);

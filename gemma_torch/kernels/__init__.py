@@ -44,8 +44,10 @@ REPO_ROOT = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "gemma_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# largest covariate count the kernels take (GT_MAX_CVT in csrc/common.cuh)
-MAX_CVT = 16
+# largest covariate count K2-K8 take (GT_WIDE_CVT in csrc/common.cuh; up
+# to GT_MAX_CVT = 16 they launch their first instantiation, above it the
+# second)
+MAX_CVT = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -311,7 +313,7 @@ def check_bslmm_shape(s_max: int) -> None:
 def check_n_cvt(n_cvt: int) -> None:
     if not 0 <= n_cvt <= MAX_CVT:
         raise ValueError(f"the kernels take 0..{MAX_CVT} covariates, got "
-                         f"{n_cvt} (GT_MAX_CVT in gemma_torch/csrc/"
+                         f"{n_cvt} (GT_WIDE_CVT in gemma_torch/csrc/"
                          "common.cuh; ROADMAP.md records the bound)")
 
 

@@ -5,9 +5,11 @@ The port runs `-gk 1|2` (kinship), `-eigen`, the univariate LMM
 `-gxe`, `-gene`, LOCO and `-ksnps`/`-gwasnps`), the multivariate LMM
 (`-lmm 1/2/3/4/9` with several `-n`, with `-gxe`), the linear model
 `-lm 1/2/3/4` (with `-gene`), BSLMM `-bslmm 1-5` and prediction
-`-predict 1/2/3`, variance components from kinships `-vc 1/2/3` and the
-windowed correlations `-calccor`/`-gw`, on one device, in float32 (speed
-mode) or float64 (parity mode).  Each `run_*` wires the dataset through
+`-predict 1/2/3`, variance components from kinships `-vc 1/2/3`, the
+windowed correlations `-calccor`/`-gw`, and the summary-statistics
+variance components (MQS: `-gs`, `-gq`, `-vc 1/2/3` with `-beta` or
+`-study/-ref`, `-ci 1/2`), on one device, in float32 (speed mode) or
+float64 (parity mode).  Each `run_*` wires the dataset through
 the device code and writes GEMMA-compatible files; `batch_run` dispatches
 on a_mode like the reference's if-chain.
 
@@ -35,7 +37,7 @@ from gemma_torch.io.writers import (
     write_bslmm_hyp, write_bslmm_gamma, write_bslmm_param, write_bslmm_bv,
     snp_rows_from_table, ensure_outdir,
 )
-from gemma_torch.models import bslmm, bslmmdap, predict, varcov, vc
+from gemma_torch.models import bslmm, bslmmdap, ci, mqs, predict, varcov, vc
 from gemma_torch.models.lm import lm_block, lm_gene_block
 from gemma_torch.models.lmm import likelihood as lk
 from gemma_torch.models.lmm.engine import (
@@ -48,12 +50,6 @@ from gemma_torch.ops.kinship import KinshipAccumulator
 from gemma_torch.ops.pack2 import IMPUTE, PAD_BYTE, pack_bed_codes, prologue
 from gemma_torch.utils.log import RunLog
 from gemma_torch.utils.validate import check_finite, validate_kinship
-
-# analysis modes outside the port → their ROADMAP.md queue entry (-vc
-# 1/2/3 from -beta or -study/-ref too, see batch_run)
-_SUMMARY_STATS = "queue A, \"summary statistics\""
-_NOT_PORTED = {(25, 26, 27, 28, 66, 67): _SUMMARY_STATS}
-
 
 def _not_ported(what: str, entry: str) -> NotImplementedError:
     return NotImplementedError(
@@ -1103,6 +1099,299 @@ def run_calccor(cfg: GemmaConfig, log: RunLog | None = None,
 
 
 # ---------------------------------------------------------------------------
+# MQS, summary-statistics variance components: -gs (S matrix), -gq (q
+# vector), -vc with -beta or -study/-ref, -ci 1/2 (modes 25-28, 61-63,
+# 66, 67)
+
+def read_categories_multi(cfg: GemmaConfig):
+    """-cat or -mcat (list of cat files, first occurrence wins,
+    n_vc = max; ReadFile_mcat gemma_io.cpp)."""
+    if cfg.file_cat:
+        return mqs.read_categories(cfg.file_cat)
+    rs2cat, n_vc = {}, 1
+    with open(cfg.file_mcat) as fh:
+        for t, line in enumerate(ln.strip() for ln in fh if ln.strip()):
+            sub, nv = mqs.read_categories(line)
+            for rs, c in sub.items():
+                rs2cat.setdefault(rs, c)
+            n_vc = nv if t == 0 else max(n_vc, nv)
+    return rs2cat, n_vc
+
+
+def _snp_categories(ds: Dataset, cfg: GemmaConfig):
+    """(QC-passing SNP indices in file order, their categories (-1 =
+    none), n_vc, rs2cat or None)."""
+    idx = np.flatnonzero(ds.qc.indicator_snp)
+    if cfg.file_cat or cfg.file_mcat:
+        rs2cat, n_vc = read_categories_multi(cfg)
+        cats = np.array([rs2cat.get(ds.geno.snps.rs[i], -1) for i in idx],
+                        dtype=np.int64)
+        return idx, cats, n_vc, rs2cat
+    return idx, np.zeros(len(idx), dtype=np.int64), 1, None
+
+
+def _geno_fetch(ds: Dataset, idx: np.ndarray, dtype: torch.dtype,
+                device: torch.device):
+    """fetch(lo, hi): the raw rows idx[lo:hi] over the analyzed
+    individuals, in the smallest wire K1 reads, on `device`."""
+    def fetch(lo, hi):
+        sel = idx[lo:hi]
+        return _to_device(_raw_wire_block(ds, sel, len(sel), dtype,
+                                          all_individuals=False), device)
+    return fetch
+
+
+def _mqs_log_lines(log: RunLog, res) -> None:
+    for name, v in (("pve estimates", res.pve), ("se(pve)", res.se_pve),
+                    ("sigma2 per snp", res.sigma2persnp),
+                    ("se(sigma2 per snp)", res.se_sigma2persnp),
+                    ("enrichment", res.enrich),
+                    ("se(enrichment)", res.se_enrich)):
+        log.extra.append(f"{name} = " + "".join(f"  {x:.6g}" for x in v))
+
+
+def run_gs(cfg: GemmaConfig, log: RunLog | None = None,
+           device: str | torch.device = "cuda"):
+    """-gs: the S matrix and its jackknife variance from reference
+    genotypes (gemma.cpp:1947-2001).  Writes prefix.S.txt (S over Svar),
+    prefix.size.txt (per-category SNP counts, then n) and the analyzed
+    SNP ids, prefix.snps.txt.gz."""
+    import gzip
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    idx, cats, n_vc, rs2cat = _snp_categories(ds, cfg)
+
+    # -wsnp/-wcat weights via ObtainWeight (gemma.cpp:1972-1975)
+    qc_rs = [ds.geno.snps.rs[i] for i in idx]
+    rs2wsnp = ci.read_wsnp(cfg.file_wsnp) if cfg.file_wsnp else None
+    rs2wcat = ci.read_wcat(cfg.file_wcat, n_vc) if cfg.file_wcat else None
+    weights = None
+    if rs2wsnp is not None or rs2wcat is not None or rs2cat is not None:
+        wK = ci.obtain_weight(qc_rs, set(), rs2cat, rs2wsnp, rs2wcat)
+        cats = np.where([rs in wK for rs in qc_rs], cats, -1)
+        if rs2wsnp is not None:
+            weights = np.array([wK.get(rs, 0.0) for rs in qc_rs])
+
+    with log.timer.phase("kinship"):
+        S, Svar, ns = mqs.calc_s_fetch(
+            _geno_fetch(ds, idx, dtype, device), len(idx), ds.W, cats, n_vc,
+            weights=weights, dtype=dtype, device=device)
+
+    ensure_outdir(cfg.path_out)
+    write_matrix(f"{cfg.out_prefix()}.S.txt", np.vstack([S, Svar]))
+    write_vector(f"{cfg.out_prefix()}.size.txt",
+                 np.concatenate([ns.astype(float), [float(ds.ni_test)]]))
+    # analyzed SNP ids (WriteVar "snps", param.cpp:1851-1884)
+    with gzip.open(f"{cfg.out_prefix()}.snps.txt.gz", "wt") as fh:
+        for rs, c in zip(qc_rs, cats):
+            if c >= 0:
+                fh.write(f"{rs}\n")
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.summary["number of variance components"] = n_vc
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return S, Svar, ns
+
+
+def run_gq(cfg: GemmaConfig, log: RunLog | None = None,
+           device: str | torch.device = "cuda"):
+    """-gq: the q vector and its block-jackknife Vq from summary
+    statistics (gemma.cpp:2003-2043).  It reads no genotype, and runs on
+    the host in numpy as in the reference; `device` only names the run's
+    device in the log."""
+    log = log or RunLog(argv=["gemma_torch"], device=torch.device(device))
+    rs2cat, n_vc = (None, 1)
+    if cfg.file_cat:
+        rs2cat, n_vc = mqs.read_categories(cfg.file_cat)
+    beta = mqs.read_beta_summary(cfg.file_beta, rs2cat=rs2cat)
+    Vq, q, s = mqs.calcq(cfg.n_block, beta.cat, beta.ni, beta.weight,
+                         beta.z2, n_vc)
+
+    ensure_outdir(cfg.path_out)
+    write_matrix(f"{cfg.out_prefix()}.Vq.txt", Vq)
+    write_vector(f"{cfg.out_prefix()}.q.txt", q)
+    write_vector(f"{cfg.out_prefix()}.size.txt",
+                 np.concatenate([s, [float(beta.ni_total)]]))
+    log.summary["number of total individuals"] = beta.ni_total
+    log.summary["number of total SNPs/var"] = beta.ns_total
+    log.summary["number of analyzed SNPs/var"] = beta.ns_test
+    log.summary["number of variance components"] = n_vc
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return Vq, q, s
+
+
+def run_vc_study_ref(cfg: GemmaConfig, log: RunLog | None = None,
+                     device: str | torch.device = "cuda") -> mqs.MqsResult:
+    """-vc with -study/-ref (or -mstudy/-mref): solve S pve = q from the
+    files -gq and -gs wrote (gemma.cpp:2231-2312).  It reads no genotype
+    and runs on the host in numpy as in the reference; `device` only
+    names the run's device in the log."""
+    log = log or RunLog(argv=["gemma_torch"], device=torch.device(device))
+    if cfg.file_study:
+        Vq, q, s_study, ni_study = ci.read_study(cfg.file_study)
+    else:
+        Vq, q, s_study, ni_study = ci.read_mstudy(cfg.file_mstudy)
+    n_vc = len(s_study)
+    if cfg.file_ref:
+        S, Svar, s_ref, ni_ref = ci.read_ref(cfg.file_ref)
+    else:
+        S, Svar, s_ref, ni_ref = ci.read_mref(cfg.file_mref)
+
+    res = mqs.calc_vc_ss(Vq, S, Svar, q, s_study, float(ni_study))
+
+    ensure_outdir(cfg.path_out)
+    write_matrix(f"{cfg.out_prefix()}.S.txt", np.vstack([S, Svar]))
+    write_matrix(f"{cfg.out_prefix()}.Vq.txt", Vq)
+    write_vector(f"{cfg.out_prefix()}.q.txt", q)
+    write_vector(f"{cfg.out_prefix()}.size.txt",
+                 np.concatenate([s_ref, [float(ni_ref)]]))
+    log.summary["number of total individuals in the sample"] = ni_study
+    log.summary["number of total individuals in the reference"] = ni_ref
+    log.summary["number of variance components"] = n_vc
+    _mqs_log_lines(log, res)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return res
+
+
+def run_vc_summary(cfg: GemmaConfig, log: RunLog | None = None,
+                   device: str | torch.device = "cuda") -> mqs.MqsResult:
+    """-vc with -beta: MQS estimation — q from the summary file, S from
+    the reference genotypes on the device, then solve S pve = q; -vc 2
+    runs a second pass with LDSC weights built from the first-pass pve
+    (gemma.cpp:2102-2230)."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+    idx, cats, n_vc, rs2cat = _snp_categories(ds, cfg)
+
+    # common SNP set + wK weights (ObtainWeight, gemma.cpp:2110-2117)
+    rs2wsnp = ci.read_wsnp(cfg.file_wsnp) if cfg.file_wsnp else None
+    rs2wcat = ci.read_wcat(cfg.file_wcat, n_vc) if cfg.file_wcat else None
+    setSnps_beta = ci.read_beta_rs_set(cfg.file_beta)
+    qc_rs = [ds.geno.snps.rs[i] for i in idx]
+    wK = ci.obtain_weight(qc_rs, setSnps_beta, rs2cat, rs2wsnp, rs2wcat)
+
+    beta = mqs.read_beta_summary(cfg.file_beta, rs2cat=rs2cat, rs2w=wK)
+    Vq, q, s = mqs.calcq(cfg.n_block, beta.cat, beta.ni, beta.weight,
+                         beta.z2, n_vc)
+
+    cats_used = np.where([rs in wK for rs in qc_rs], cats, -1)
+    wK_arr = np.array([wK.get(rs, 0.0) for rs in qc_rs]) if rs2wsnp \
+        else None
+    fetch = _geno_fetch(ds, idx, dtype, device)
+
+    with log.timer.phase("kinship"):
+        S, Svar, ns = mqs.calc_s_fetch(fetch, len(idx), ds.W, cats_used,
+                                       n_vc, weights=wK_arr, dtype=dtype,
+                                       device=device)
+    res = mqs.calc_vc_ss(Vq, S, Svar, q, s, float(beta.ni_total))
+
+    if cfg.a_mode == 62:
+        # LDSC-weighted second pass (gemma.cpp:2183-2212)
+        wA = ci.update_weight(1, wK, beta.ni_total, s, res.pve, rs2cat,
+                              rs2wcat)
+        beta = mqs.read_beta_summary(cfg.file_beta, rs2cat=rs2cat, rs2w=wA)
+        Vq, q, s = mqs.calcq(cfg.n_block, beta.cat, beta.ni, beta.weight,
+                             beta.z2, n_vc)
+        wA_arr = np.array([wA.get(rs, 0.0) for rs in qc_rs])
+        with log.timer.phase("kinship"):
+            S, Svar, ns = mqs.calc_s_fetch(
+                fetch, len(idx), ds.W, cats_used, n_vc, weights=wK_arr,
+                weights_a=wA_arr, dtype=dtype, device=device)
+        res = mqs.calc_vc_ss(Vq, S, Svar, q, s, float(beta.ni_total))
+
+    ensure_outdir(cfg.path_out)
+    write_matrix(f"{cfg.out_prefix()}.S.txt", np.vstack([S, Svar]))
+    write_matrix(f"{cfg.out_prefix()}.Vq.txt", Vq)
+    write_vector(f"{cfg.out_prefix()}.q.txt", q)
+    write_vector(f"{cfg.out_prefix()}.size.txt",
+                 np.concatenate([s, [float(ds.ni_test)]]))
+    log.summary["number of total individuals in the sample"] = beta.ni_total
+    log.summary["number of total individuals in the reference"] = ds.ni_total
+    log.summary["number of total SNPs/var in the sample"] = beta.ns_total
+    log.summary["number of analyzed SNPs/var"] = beta.ns_test
+    log.summary["number of variance components"] = n_vc
+    _mqs_log_lines(log, res)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return res
+
+
+def run_ci(cfg: GemmaConfig, log: RunLog | None = None,
+           device: str | torch.device = "cuda") -> ci.CiResult:
+    """-ci 1/2 (modes 66/67): standard errors for MQS pve estimates from
+    a reference panel and study z-scores (gemma.cpp:2400-2560); the
+    genotype passes run on the device."""
+    device = torch.device(device)
+    dtype = precision.resolve_dtype(cfg.precision, device)
+    log = log or RunLog(argv=["gemma_torch"], device=device)
+    with log.timer.phase("load"):
+        ds = load_dataset(cfg)
+
+    rs2cat, n_vc = (None, 1)
+    if cfg.file_cat or cfg.file_mcat:
+        rs2cat, n_vc = read_categories_multi(cfg)
+    if len(cfg.v_pve) != n_vc:
+        raise ValueError(f"-ci requires -pve with {n_vc} values "
+                         f"(one per variance component)")
+
+    if cfg.file_ref:
+        S, Svar, s_ref, ni_ref = ci.read_ref(cfg.file_ref)
+    elif cfg.file_mref:
+        S, Svar, s_ref, ni_ref = ci.read_mref(cfg.file_mref)
+    else:
+        raise ValueError("-ci requires -ref or -mref")
+
+    rs2wsnp = ci.read_wsnp(cfg.file_wsnp) if cfg.file_wsnp else None
+    rs2wcat = ci.read_wcat(cfg.file_wcat, n_vc) if cfg.file_wcat else None
+    if cfg.a_mode == 67 and rs2wcat is None:
+        raise ValueError("-ci 2 requires -wcat weights")
+
+    setSnps_beta = ci.read_beta_rs_set(cfg.file_beta)
+    qc_rs = ds.geno.snps.rs[ds.qc.indicator_snp]
+    wK = ci.obtain_weight(qc_rs, setSnps_beta, rs2cat, rs2wsnp, rs2wcat)
+
+    # per-category SNP counts over the common set (gemma.cpp:2447-2459)
+    s_vec = np.zeros(n_vc)
+    for rs in wK:
+        s_vec[rs2cat[rs] if rs2cat is not None else 0] += 1
+
+    if cfg.a_mode == 66:
+        wA = {rs: 1.0 for rs in wK}
+    else:
+        wA = ci.update_weight(0, wK, ds.ni_test, s_vec, cfg.v_pve, rs2cat,
+                              rs2wcat)
+
+    rs2z, rs2a1 = ci.read_signed_beta(cfg.file_beta, keep=set(wA))
+    keep_idx, w, z, cat = ci.update_snp_z(
+        ds.geno.snps.rs, ds.geno.snps.a_minor, ds.qc.indicator_snp, wA,
+        rs2a1, rs2z, rs2cat)
+
+    with log.timer.phase("kinship"):
+        # mode 66 uses unit weights for XWz too (gemma.cpp:2497-2498)
+        Xz, XWz, XtXWz = ci.xwz_passes_fetch(
+            _geno_fetch(ds, keep_idx, dtype, device), len(keep_idx),
+            ds.ni_test, np.ones_like(w) if cfg.a_mode == 66 else w, z, cat,
+            n_vc, dtype=dtype, device=device)
+
+    res = ci.calc_ci_ss(Xz, XWz, XtXWz, S, Svar, w, z, s_vec, cat,
+                        np.asarray(cfg.v_pve))
+
+    ensure_outdir(cfg.path_out)
+    log.summary["number of total individuals"] = ds.ni_total
+    log.summary["number of analyzed individuals"] = ds.ni_test
+    log.summary["number of analyzed SNPs/var"] = len(keep_idx)
+    log.summary["number of variance components"] = n_vc
+    _mqs_log_lines(log, res)
+    log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def batch_run(cfg: GemmaConfig, argv: list | None = None,
               device: str | None = None):
@@ -1138,17 +1427,20 @@ def batch_run(cfg: GemmaConfig, argv: list | None = None,
         return run_predict(cfg, log, dev)
     if cfg.a_mode == 43:
         return run_predict43(cfg, log, dev)
+    if cfg.a_mode in (66, 67):
+        return run_ci(cfg, log, dev)
     if cfg.a_mode in (61, 62, 63):
-        if cfg.file_beta or ((cfg.file_study or cfg.file_mstudy)
-                             and (cfg.file_ref or cfg.file_mref)):
-            raise _not_ported(f"analysis mode {cfg.a_mode} from -beta or "
-                              "-study/-ref", _SUMMARY_STATS)
+        if (cfg.file_study or cfg.file_mstudy) and \
+                (cfg.file_ref or cfg.file_mref):
+            return run_vc_study_ref(cfg, log, dev)
+        if cfg.file_beta:
+            return run_vc_summary(cfg, log, dev)
         return run_vc(cfg, log, dev)
+    if cfg.a_mode in (25, 26):
+        return run_gs(cfg, log, dev)
+    if cfg.a_mode in (27, 28):
+        return run_gq(cfg, log, dev)
     if cfg.a_mode in (71, 72):
         return run_calccor(cfg, log, dev)
-    else:
-        for modes, entry in _NOT_PORTED.items():
-            if cfg.a_mode in modes:
-                raise _not_ported(f"analysis mode {cfg.a_mode}", entry)
-        raise NotImplementedError(f"analysis mode {cfg.a_mode} not yet "
-                                  "implemented")
+    raise NotImplementedError(f"analysis mode {cfg.a_mode} not yet "
+                              "implemented")

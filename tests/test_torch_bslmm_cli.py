@@ -251,8 +251,9 @@ def test_bslmm1_initial_values_and_file_shapes(data):
 @pytest.mark.parametrize("flags, entry", [
     # -crt runs now; -debug, which the port does not trap yet, still raises
     ("-n 1 2 -lmm 1 -crt -debug", 'queue A, "skeleton" (profiling)'),
-    # -vc from kinships runs now; from summary statistics it still raises
-    ("-vc 1 -beta {td}/K.cXX.txt", 'queue A, "summary statistics"'),
+    # -vc runs now from kinships and from summary statistics; -trace,
+    # which the port does not profile yet, still raises
+    ("-vc 1 -trace {td}/trace", 'queue A, "skeleton" (profiling)'),
 ], ids=["crt", "vc"])
 def test_modes_still_outside_the_port_name_their_queue(data, flags, entry):
     td, common = data

@@ -162,9 +162,6 @@ def test_lmm1_float32_port_within_contract(bimbam):
 
 
 @pytest.mark.parametrize("flags,entry", [
-    ("-gs 1", 'queue A, "summary statistics"'),
-    ("-vc 1 -beta {pheno}", 'queue A, "summary statistics"'),
-    ("-ci 1 -beta {pheno} -ref {pheno}", 'queue A, "summary statistics"'),
     ("-lmm 1 -debug", 'queue A, "skeleton" (profiling)'),
 ])
 def test_modes_outside_the_slice_raise(bimbam, flags, entry):
