@@ -13,8 +13,10 @@
 //
 // The chain is sequential: iteration t + 1 starts from t's state.  One
 // block of BS_THREADS threads runs iterations [t0, t1) with the state in
-// shared memory (scalars, the active ranks) and in the block's own global
-// buffers (the n- and s_max-vectors, L2-resident):
+// shared memory (scalars, the active ranks: static up to s_max 1,024,
+// dynamic above it, and at the end of the scratch beyond BS_DYN_SMEM) and
+// in the block's own global buffers (the n- and s_max-vectors,
+// L2-resident):
 //   * thread 0 draws the proposals — (h, rho, log pi) by reflected steps,
 //     gamma by add/remove/swap with the reference's corrections, a new
 //     rank by binary search of the float64 cumulative p_gamma and
@@ -48,7 +50,11 @@
 
 #define BS_THREADS 512
 #define BS_WARPS (BS_THREADS / 32)
-#define BS_MAX_S 1024   // largest s_max (kernels.MAX_S_MAX)
+#define BS_MAX_S 1024   // largest s_max of the static rank lists
+// the largest dynamic shared memory the rank lists of a longer s_max take
+// (3 lists of s_max ints, beside the static part); beyond it they live
+// at the end of the scratch `work`
+#define BS_DYN_SMEM (227 * 1024 - 4096)
 #define BS_TILE 8       // Omega columns a warp sums in one pass over n
 
 // draw purposes within an MH step: the counter's stream word is
@@ -80,10 +86,24 @@
 #define C_DR 8
 #define C_DP 9
 
-struct BsShared {
-  int rk[BS_MAX_S];      // the state's active ranks (first ng), sorted
-  int rk_new[BS_MAX_S];  // the proposal's
-  int rk_tmp[BS_MAX_S];
+// The rank lists: static shared arrays up to BS_MAX_S (MS = BS_MAX_S, the
+// code the kernel always ran), or (MS = 0) three lists of s_max ints in
+// dynamic shared memory or, beyond BS_DYN_SMEM, in global scratch.
+template <int MS>
+struct BsRanks {
+  int rk[MS];      // the state's active ranks (first ng), sorted
+  int rk_new[MS];  // the proposal's
+  int rk_tmp[MS];
+};
+template <>
+struct BsRanks<0> {
+  int* rk;
+  int* rk_new;
+  int* rk_tmp;
+};
+
+template <int MS>
+struct BsShared : BsRanks<MS> {
   double red[BS_WARPS + 1];
   // state
   double h, rho, logp, logpost, pve, pge, mean_z, acc_mean_z;
@@ -147,8 +167,8 @@ __device__ __forceinline__ double bs_reflect(double x, double lo, double hi) {
 }
 
 // (h, rho, log pi) moved `repeat` times (thread 0)
-template <typename T>
-__device__ void bs_propose_hrp(const BsChain<T>& C, BsShared& sh, unsigned t,
+template <typename T, typename SH>
+__device__ void bs_propose_hrp(const BsChain<T>& C, SH& sh, unsigned t,
                                unsigned st, int repeat) {
   double h = sh.h, rho = sh.rho, logp = sh.logp, lr = 0.0;
   for (int i = 0; i < repeat; ++i) {
@@ -196,8 +216,8 @@ __device__ int bs_new_rank(const BsChain<T>& C, const int* rk, int ng,
 }
 
 // add/remove/swap `repeat` times into rk_new (thread 0); returns log q
-template <typename T>
-__device__ double bs_propose_gamma(const BsChain<T>& C, BsShared& sh,
+template <typename T, typename SH>
+__device__ double bs_propose_gamma(const BsChain<T>& C, SH& sh,
                                    unsigned t, unsigned st, int repeat) {
   int* rk = sh.rk_new;
   int ng = sh.ng;
@@ -249,7 +269,8 @@ __device__ double bs_propose_gamma(const BsChain<T>& C, BsShared& sh,
 }
 
 // sort rk_new[0..ng_new) ascending (the block; ranks are distinct)
-__device__ void bs_sort_new(BsShared& sh) {
+template <typename SH>
+__device__ void bs_sort_new(SH& sh) {
   const int ng = sh.ng_new;
   for (int j = threadIdx.x; j < ng; j += BS_THREADS) {
     const int r = sh.rk_new[j];
@@ -264,8 +285,8 @@ __device__ void bs_sort_new(BsShared& sh) {
 
 // the marginal posterior at (rk[0..ng), h, rho, logp) with draws at
 // (t, stream); writes the slot `out` and sh.post_*, sh.tau (the block)
-template <typename T>
-__device__ void bs_posterior(const BsChain<T>& C, BsShared& sh, const int* rk,
+template <typename T, typename SH>
+__device__ void bs_posterior(const BsChain<T>& C, SH& sh, const int* rk,
                              int ng, double h, double rho, double logp,
                              unsigned t, unsigned stream, double* out) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -436,8 +457,8 @@ __device__ void bs_posterior(const BsChain<T>& C, BsShared& sh, const int* rk,
 }
 
 // -bslmm 3: resample the liabilities and refresh the posterior
-template <typename T>
-__device__ void bs_probit_refresh(const BsChain<T>& C, BsShared& sh,
+template <typename T, typename SH>
+__device__ void bs_probit_refresh(const BsChain<T>& C, SH& sh,
                                   unsigned t) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = C.n;
@@ -483,8 +504,8 @@ __device__ void bs_probit_refresh(const BsChain<T>& C, BsShared& sh,
   __syncthreads();
 }
 
-template <typename T>
-__device__ void bs_mh_step(const BsChain<T>& C, BsShared& sh, unsigned t,
+template <typename T, typename SH>
+__device__ void bs_mh_step(const BsChain<T>& C, SH& sh, unsigned t,
                            int m) {
   const unsigned st = (unsigned)m * BS_STRIDE;
   if (threadIdx.x == 0) {
@@ -522,15 +543,27 @@ __device__ void bs_mh_step(const BsChain<T>& C, BsShared& sh, unsigned t,
   __syncthreads();
 }
 
-template <typename T>
+// MS = BS_MAX_S: s_max <= BS_MAX_S, static rank lists; MS = 0: the rank
+// lists in dynamic shared memory, or at rk_global where that is given
+template <typename T, int MS>
 __global__ void __launch_bounds__(BS_THREADS)
 bslmm_chain_kernel(int t0, int t1, BsChain<T> C, double* scal, int* ints,
                    int* ranks, double* beta, double* alpha, double* Utu,
                    double* UtXb, double* acc_alpha, double* acc_Utu,
                    double* acc_beta, double* acc_betacnt, double* rec_hyp,
-                   int* rec_gamma) {
-  __shared__ BsShared sh;
+                   int* rec_gamma, int* rk_global) {
+  __shared__ BsShared<MS> sh;
   const int tid = threadIdx.x, n = C.n, S = C.s_max;
+  if constexpr (MS == 0) {
+    extern __shared__ int bs_dyn_ranks[];
+    if (tid == 0) {
+      int* base = rk_global != nullptr ? rk_global : bs_dyn_ranks;
+      sh.rk = base;
+      sh.rk_new = base + S;
+      sh.rk_tmp = base + 2 * S;
+    }
+    __syncthreads();
+  }
   if (tid == 0) {
     sh.h = scal[0];
     sh.rho = scal[1];
@@ -631,7 +664,6 @@ static int bslmm_chain_run(int t0, int t1, int n, int p, int s_max, int s_min,
                            void* acc_Utu, void* acc_beta, void* acc_betacnt,
                            void* rec_hyp, void* rec_gamma, int n_rec,
                            void* work, void* stream) {
-  if (s_max > BS_MAX_S) return (int)cudaErrorInvalidValue;
   BsChain<T> C;
   C.n_rec = n_rec;
   C.n = n;
@@ -666,11 +698,29 @@ static int bslmm_chain_run(int t0, int t1, int n, int p, int s_max, int s_min,
   C.b = wk;
   C.bh = wk + s_max;
   C.zz = wk + 2 * s_max;
-  bslmm_chain_kernel<T><<<1, BS_THREADS, 0, (cudaStream_t)stream>>>(
-      t0, t1, C, (double*)scal, (int*)ints, (int*)ranks, (double*)beta,
-      (double*)alpha, (double*)Utu, (double*)UtXb, (double*)acc_alpha,
-      (double*)acc_Utu, (double*)acc_beta, (double*)acc_betacnt,
-      (double*)rec_hyp, (int*)rec_gamma);
+  wk += 3 * s_max;
+  if (s_max <= BS_MAX_S) {
+    bslmm_chain_kernel<T, BS_MAX_S><<<1, BS_THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+        t0, t1, C, (double*)scal, (int*)ints, (int*)ranks, (double*)beta,
+        (double*)alpha, (double*)Utu, (double*)UtXb, (double*)acc_alpha,
+        (double*)acc_Utu, (double*)acc_beta, (double*)acc_betacnt,
+        (double*)rec_hyp, (int*)rec_gamma, nullptr);
+  } else {
+    // above BS_MAX_S the rank lists (3 s_max ints) go to dynamic shared
+    // memory, and beyond BS_DYN_SMEM to the end of the scratch
+    const long bytes = 3L * 4 * s_max;
+    const bool smem = bytes <= BS_DYN_SMEM;
+    auto kern = bslmm_chain_kernel<T, 0>;
+    if (smem)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+    kern<<<1, BS_THREADS, smem ? (int)bytes : 0, (cudaStream_t)stream>>>(
+        t0, t1, C, (double*)scal, (int*)ints, (int*)ranks, (double*)beta,
+        (double*)alpha, (double*)Utu, (double*)UtXb, (double*)acc_alpha,
+        (double*)acc_Utu, (double*)acc_beta, (double*)acc_betacnt,
+        (double*)rec_hyp, (int*)rec_gamma, smem ? nullptr : (int*)wk);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -27,12 +27,19 @@
 // Hi_k, P_k, F_k, built by the block) and each thread owns up to CRT_Q
 // sums; groups of sums beyond CRT_THREADS x CRT_Q stage the chunks again.
 // The sums, Qi and the pair traces live in a per-lane float64 scratch the
-// wrapper sizes (mvlmm_core.crt_scratch).  float64 operands and
+// wrapper sizes (calc_crt_lane_bytes).  float64 operands and
 // arithmetic: -crt runs in float64 (ROADMAP §C18).  A singular Qi_ss gives
 // inf/NaN, as the reference's LU inverse: nothing is clamped.
 //
 // Bound: operations — the pass's sums, S n (5 v² + 4 v d cd + ...)
 // float64 multiply-adds; the operands are read once (r n values a lane).
+//
+// Lanes [s0, s0 + count) of a launch; the scratch holds `count` lanes
+// (the wrapper splits a block's lanes under a byte budget).  Beyond d = 8
+// or 10 design rows the run-time-sized form (MD = MC = 0, mvlmm_lane.cuh)
+// runs, its state, Gram blocks, Qs, Z, staged x and per-individual d×d
+// arrays (at least one individual's a stage) and thread 0's frame in the
+// scratch too.
 #include "mvlmm_lane.cuh"
 
 #define CRT_THREADS 128
@@ -41,7 +48,20 @@
 #define CRT_CH_MAX 32
 #define CRT_MAX_V (MV_MAX_D * (MV_MAX_D + 1) / 2)
 
-// doubles of a lane's scratch (mvlmm_core.crt_scratch)
+// doubles of one staged per-individual array in the run-time-sized form
+__host__ __device__ inline long crt_stage_len(int d) {
+  return (long)d * d > CRT_STAGE ? (long)d * d : CRT_STAGE;
+}
+
+// the run-time-sized form's additions to a lane's scratch
+__host__ __device__ inline long crt_dyn_extra(int d, int c) {
+  const long vs = (long)d * (d + 1) / 2;
+  return mv_state_len(d, c) + (long)d * mv_tri(c) + (long)d * c * d +
+         (long)d * d + (long)CRT_CH_MAX * c + 4 * crt_stage_len(d) +
+         mv_frame_len(d, c) + 2 * vs;
+}
+
+// doubles of a lane's scratch at d <= 8, c <= 10 (calc_crt_lane_bytes)
 __host__ __device__ inline long crt_scratch(int d, int c) {
   const long vs = d * (d + 1) / 2, cd = (long)c * d;
   return cd * cd + 2 * vs * d * d + 3 * vs * vs + 2 * vs * d * cd +
@@ -130,39 +150,70 @@ __device__ inline CrtSum crt_sum(const CrtLayout& Ly, long r) {
   return s;
 }
 
+template <int MD, int MC>
 __global__ void __launch_bounds__(CRT_THREADS)
 calc_crt_kernel(int S, int n, int d, int c0, int r,
                 const double* __restrict__ eval,
                 const double* __restrict__ X0, const double* __restrict__ R,
                 const double* __restrict__ Vg, const double* __restrict__ Ve,
                 const double* __restrict__ Hvar, double* scratch,
-                double* out) {
-  __shared__ MvState st;
-  __shared__ double sQ[MV_MAX_D * MV_MAX_C * (MV_MAX_C + 1) / 2];
-  __shared__ double sQs[MV_MAX_D * MV_MAX_C * MV_MAX_D];
-  __shared__ double sZ[MV_MAX_D * MV_MAX_D];
-  __shared__ double sx[CRT_CH_MAX * MV_MAX_C];
+                double* out, int lane0) {
+  __shared__ MvState<MD, MC> st;
   __shared__ double sE[3][CRT_CH_MAX];
-  __shared__ double sHi[CRT_STAGE], sR[CRT_STAGE], sP[CRT_STAGE],
-      sF[CRT_STAGE];
-  const int lane = blockIdx.x, tid = threadIdx.x;
+  const int lane = lane0 + blockIdx.x, tid = threadIdx.x;
   const MvLane<double> Ln =
       mv_lane<double>(eval, X0, nullptr, R, n, d, c0, r, lane);
   const int c = Ln.c, dd = d * d, tc = mv_tri(c);
   const CrtLayout Ly(d, c);
   const int vs = Ly.vs, cd = Ly.cd;
-  double* sc = scratch + (long)lane * crt_scratch(d, c);
+  const long lane_len = crt_scratch(d, c) + (MD == 0 ? crt_dyn_extra(d, c) : 0);
+  double* sc = scratch + (long)blockIdx.x * lane_len;
   double* Qi = sc + Ly.Qi;
   double* acc = sc + Ly.SS;
-  const int ch = min(CRT_CH_MAX, CRT_STAGE / dd);
+  double *sQ, *sQs, *sZ, *sx, *sHi, *sR, *sP, *sF;
+  double* w = sc + crt_scratch(d, c);  // the run-time-sized form's part
+  double* fr = nullptr;                // thread 0's frame in it
+  int xs, stage;                       // sx's row stride, a stage's length
+  if constexpr (MD == 0) {
+    xs = c;
+    stage = (int)crt_stage_len(d);
+    sQ = w + mv_state_len(d, c);
+    sQs = sQ + (long)d * tc;
+    sZ = sQs + (long)d * c * d;
+    sx = sZ + dd;
+    sHi = sx + (long)CRT_CH_MAX * c;
+    sR = sHi + stage;
+    sP = sR + stage;
+    sF = sP + stage;
+    fr = sF + stage;
+  } else {
+    __shared__ double sQ_s[MV_MAX_D * MV_MAX_C * (MV_MAX_C + 1) / 2];
+    __shared__ double sQs_s[MV_MAX_D * MV_MAX_C * MV_MAX_D];
+    __shared__ double sZ_s[MV_MAX_D * MV_MAX_D];
+    __shared__ double sx_s[CRT_CH_MAX * MV_MAX_C];
+    __shared__ double sHi_s[CRT_STAGE], sR_s[CRT_STAGE], sP_s[CRT_STAGE],
+        sF_s[CRT_STAGE];
+    xs = MV_MAX_C;
+    stage = CRT_STAGE;
+    sQ = sQ_s;
+    sQs = sQs_s;
+    sZ = sZ_s;
+    sx = sx_s;
+    sHi = sHi_s;
+    sR = sR_s;
+    sP = sP_s;
+    sF = sF_s;
+  }
+  const int ch = min(CRT_CH_MAX, stage / dd);
 
   // EigenProc of (Vg, Ve)
   if (tid == 0) {
+    mv_state_bind(st, w, d, c);
     for (int i = 0; i < dd; ++i) {
       st.Vg[i] = Vg[(long)lane * dd + i];
       st.Ve[i] = Ve[(long)lane * dd + i];
     }
-    mv_eigen_proc(d, st.Vg, st.Ve, st, nullptr);
+    mv_eigen_proc(d, st.Vg, st.Ve, st, nullptr, fr);
   }
   __syncthreads();
   // the whitened Gram blocks Σ_k w_kl x_i x_j (l; i <= j)
@@ -177,11 +228,14 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
   }
   __syncthreads();
   if (tid == 0) {
+    MvTmp<double, MC * MC> tQ;
+    double* fq = fr;
+    double* Q = tQ.take(fq, c * c);
     for (int l = 0; l < d; ++l) {
-      double Q[MV_MAX_C * MV_MAX_C], ld;
+      double ld;
       for (int i = 0; i < c; ++i)
         for (int j = 0; j < c; ++j) Q[i * c + j] = sQ[l * tc + mv_ti(i, j, c)];
-      mv_inv_logdet(c, Q, st.Qi + l * c * c, ld);
+      mv_inv_logdet<MC>(c, Q, st.Qi + l * c * c, ld, fq);
     }
   }
   __syncthreads();
@@ -201,7 +255,9 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
     sQs[e] = Qi[(long)(s0 + e / cd) * cd + e % cd];
   __syncthreads();
   if (tid == 0) {
-    double M[MV_MAX_D * MV_MAX_D];
+    MvTmp<double, MD * MD> tM;
+    double* fm = fr;
+    double* M = tM.take(fm, d * d);
     for (int i = 0; i < d; ++i)
       for (int j = 0; j < d; ++j) M[i * d + j] = sQs[i * cd + s0 + j];
     mv_invert(d, M, sZ);
@@ -223,7 +279,7 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
       for (int e = tid; e < kn * (c + 1); e += CRT_THREADS) {
         const int k = e / (c + 1), col = e % (c + 1);
         if (col < c) {
-          sx[k * MV_MAX_C + col] = Ln.x(col, k0 + k);
+          sx[k * xs + col] = Ln.x(col, k0 + k);
         } else {
           const double dl = eval[k0 + k];
           sE[0][k] = 1.0;
@@ -240,7 +296,7 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
         for (int l = 0; l < d; ++l)
           h += st.A[l * d + i] * (1.0 / (st.D[l] * dl + 1.0)) * st.A[l * d + j];
         for (int b = 0; b < c; ++b)
-          rk += sx[k * MV_MAX_C + b] * sQs[i * cd + b * d + j];
+          rk += sx[k * xs + b] * sQs[i * cd + b * d + j];
         sHi[e] = h;
         sR[e] = rk;
       }
@@ -291,7 +347,7 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
             const double* H = sHi + k * dd;
             double t = P[s.o1] * H[s.o2];
             if (s.two) t += P[s.o3] * H[s.o4];
-            v += ep[k] * (sx[k * MV_MAX_C + s.xb] * t);
+            v += ep[k] * (sx[k * xs + s.xb] * t);
           }
         }
         a[q] = v;
@@ -381,7 +437,10 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
   }
   __syncthreads();
   if (tid == 0) {
-    double trCg[CRT_MAX_V], trCe[CRT_MAX_V];
+    MvTmp<double, MD == 0 ? 0 : CRT_MAX_V> tg, te;
+    double* ft = fr;
+    double* trCg = tg.take(ft, vs);
+    double* trCe = te.take(ft, vs);
     for (int v = 0; v < vs; ++v) {
       double g = 0.0, e = 0.0;
       for (int a = 0; a < d; ++a) {
@@ -421,14 +480,21 @@ calc_crt_kernel(int S, int n, int d, int c0, int r,
 extern "C" int calc_crt_launch(int S, int n, int d, int c0, int r,
                                const void* eval, const void* X0,
                                const void* R, const void* Vg, const void* Ve,
-                               const void* Hvar, void* scratch, void* out,
-                               void* stream) {
-  if (S > 0)
-    calc_crt_kernel<<<S, CRT_THREADS, 0, (cudaStream_t)stream>>>(
+                               const void* Hvar, void* out, int s0, int count,
+                               void* scratch, void* stream) {
+  auto kern = mv_dyn(d, c0 + r) ? calc_crt_kernel<0, 0>
+                                : calc_crt_kernel<MV_MAX_D, MV_MAX_C>;
+  if (count > 0)
+    kern<<<count, CRT_THREADS, 0, (cudaStream_t)stream>>>(
         S, n, d, c0, r, (const double*)eval, (const double*)X0,
         (const double*)R, (const double*)Vg, (const double*)Ve,
-        (const double*)Hvar, (double*)scratch, (double*)out);
+        (const double*)Hvar, (double*)scratch, (double*)out, s0);
   return (int)cudaGetLastError();
+}
+
+// bytes of a lane's scratch
+extern "C" long calc_crt_lane_bytes(int d, int c) {
+  return 8 * (crt_scratch(d, c) + (mv_dyn(d, c) ? crt_dyn_extra(d, c) : 0));
 }
 
 GT_ERROR_FN(calc_crt)

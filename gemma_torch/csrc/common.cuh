@@ -19,12 +19,17 @@
 #include <math.h>
 #include <stdint.h>
 
-// The covariate kernels (K2-K8) are instantiated twice: for at most
-// GT_MAX_CVT covariates, the code they always ran, and for at most
-// GT_WIDE_CVT, which a launch takes only above GT_MAX_CVT.  GtDims sizes
-// the per-block and per-thread arrays of an instantiation.
+// The covariate kernels (K2-K8) are instantiated three times: for at
+// most GT_MAX_CVT covariates, the code they always ran; for at most
+// GT_WIDE_CVT, which a launch takes only above GT_MAX_CVT; and, above
+// that, the form sized at run time (MC = GT_DYN), whose per-lane working
+// sets live in a per-lane slice of global scratch that the wrapper
+// allocates, lanes split into launches under a byte budget
+// (kernels.lane_ranges).  GtDims sizes the per-block and per-thread
+// arrays of the two fixed instantiations.
 #define GT_MAX_CVT 16
 #define GT_WIDE_CVT 32
+#define GT_DYN 0
 #define GT_THREADS 256
 #define GT_WARPS (GT_THREADS / 32)
 
@@ -46,6 +51,26 @@ __device__ __forceinline__ float gt_max(float a, float b) {
 __device__ __forceinline__ double gt_max(double a, double b) {
   return fmax(a, b);
 }
+
+// the instantiation a launch of n_cvt covariates takes
+__host__ __device__ inline int gt_form(int n_cvt) {
+  return n_cvt <= GT_MAX_CVT ? GT_MAX_CVT
+                             : (n_cvt <= GT_WIDE_CVT ? GT_WIDE_CVT : GT_DYN);
+}
+
+__host__ __device__ inline long gt_r16(long b) { return (b + 15) / 16 * 16; }
+
+// A bump allocator over one lane's slice of global scratch (the GT_DYN
+// forms): take(k) returns the next k values of type U, 16-byte aligned.
+struct GtCarve {
+  unsigned char* p;
+  template <typename U>
+  __host__ __device__ U* take(long k) {
+    U* r = reinterpret_cast<U*>(p);
+    p += gt_r16((long)sizeof(U) * k);
+    return r;
+  }
+};
 
 template <int MC>
 struct GtDims {
@@ -192,10 +217,21 @@ __device__ inline void gt_pab_step(const PabTables& t, int ni, int p,
   }
 }
 
-// The same steps for one thread holding its rows in local arrays.
+// A row of one thread held in global scratch, entry k at p[k * st] (K2's
+// GT_DYN form: the threads of a launch interleave, so loads coalesce).
+struct GtStrided {
+  float* p;
+  long st;
+  __device__ __forceinline__ float& operator[](int k) const {
+    return p[(long)k * st];
+  }
+};
+
+// The same steps for one thread holding its rows in local arrays (R =
+// float*) or in global scratch (R = GtStrided).
+template <typename R>
 __device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
-                                         const float* pab, const float* ppab,
-                                         float* npab, float* nppab) {
+                                         R pab, R ppab, R npab, R nppab) {
   const int* aw = t.aw + (p - 1) * ni;
   const int* bw = t.bw + (p - 1) * ni;
   const int w = t.ww[p - 1];
@@ -224,6 +260,35 @@ struct TestSmem {
   T q[GtDims<MC>::M + GtDims<MC>::C1 + 1];
   T rows[2][GtDims<MC>::NI];
 };
+
+// The GT_DYN form: the same arrays in the lane's slice of global scratch
+// (red stays in shared memory).
+template <typename T>
+struct TestSmem<T, GT_DYN> {
+  T* red;
+  T* q;
+  T* rows[2];
+};
+
+__host__ __device__ inline long gt_test_lane_bytes(int n_cvt, int tsize) {
+  const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
+  return gt_r16((M + C1 + 1) * tsize) +
+         2 * gt_r16(gt_n_index(n_cvt) * (long)tsize);
+}
+
+template <typename T>
+__device__ inline TestSmem<T, GT_DYN> gt_test_view(unsigned char* lane,
+                                                   int n_cvt) {
+  __shared__ T red[GT_WARPS * 8];
+  const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
+  GtCarve cv{lane};
+  TestSmem<T, GT_DYN> v;
+  v.red = red;
+  v.q = cv.take<T>(M + C1 + 1);
+  v.rows[0] = cv.take<T>(gt_n_index(n_cvt));
+  v.rows[1] = cv.take<T>(gt_n_index(n_cvt));
+  return v;
+}
 
 // The entries of the CalcPab rows that the Wald and score tests read:
 // p_yy, p_xx, p_xy after the covariates are eliminated, px_yy after x.

@@ -21,31 +21,29 @@
 // of 171 floats, 2.7 KB a thread), or GT_WIDE_CVT above it (595 floats,
 // 9.5 KB a thread, which the CUDA driver reserves for every resident
 // thread); at c = 1 only 6 of their entries are touched, so they stay
-// in L1.
+// in L1.  Above GT_WIDE_CVT (the GT_DYN form) the four rows live in
+// global scratch, ni floats each a thread, interleaved across the
+// launch's threads so that their loads coalesce (lambda_grid_lane_bytes
+// a lane: G threads); the wrapper splits the lanes into launches under a
+// byte budget.
 #include "common.cuh"
 
-template <int MC>
-__global__ void lambda_grid_kernel(const float* __restrict__ xcross,
-                                   const float* __restrict__ xx,
-                                   const float* __restrict__ shared,
-                                   const float* __restrict__ trace_hi,
-                                   const float* __restrict__ lam,
-                                   const int* __restrict__ tab, int n_cvt,
-                                   int S, int G, int M, int n,
-                                   int calc_null, int reml, int wy_lane,
-                                   float* d1f) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const int g = blockIdx.y;
-  if (s >= S) return;
+// One thread's dev1 with its four rows in a0, a1, b0, b1 (local arrays or
+// strided global scratch).
+template <typename R>
+__device__ __forceinline__ void lambda_grid_thread(
+    R a0, R a1, R b0, R b1, const float* __restrict__ xcross,
+    const float* __restrict__ xx, const float* __restrict__ shared,
+    const float* __restrict__ trace_hi, const float* __restrict__ lam,
+    const int* __restrict__ tab, int n_cvt, int S, int G, int M, int n,
+    int calc_null, int reml, int wy_lane, float* d1f, int s, int g) {
   const PabTables t = gt_tables(tab, n_cvt);
   const int ni = gt_n_index(n_cvt);
   const int C1 = n_cvt + 1;
-  float a0[GtDims<MC>::NI], a1[GtDims<MC>::NI], b0[GtDims<MC>::NI],
-      b1[GtDims<MC>::NI];
-  float* pab = a0;
-  float* ppab = a1;
-  float* npab = b0;
-  float* nppab = b1;
+  R pab = a0;
+  R ppab = a1;
+  R npab = b0;
+  R nppab = b1;
   for (int k = 0; k < ni; ++k) {
     const int kind = t.kind[k];
     const int col = t.col[k];
@@ -72,7 +70,7 @@ __global__ void lambda_grid_kernel(const float* __restrict__ xcross,
     const int d = t.diag[p - 1];
     trace_p = trace_p - ppab[d] / pab[d];
     gt_pab_step_local(t, ni, p, pab, ppab, npab, nppab);
-    float* tmp = pab; pab = npab; npab = tmp;
+    R tmp = pab; pab = npab; npab = tmp;
     tmp = ppab; ppab = nppab; nppab = tmp;
   }
   // yy is the last flat position
@@ -92,24 +90,68 @@ __global__ void lambda_grid_kernel(const float* __restrict__ xcross,
   d1f[(long)g * S + s] = out;
 }
 
+// lanes [s0, s0 + count) of S; the GT_DYN form's rows in `scratch`
+template <int MC>
+__global__ void lambda_grid_kernel(const float* __restrict__ xcross,
+                                   const float* __restrict__ xx,
+                                   const float* __restrict__ shared,
+                                   const float* __restrict__ trace_hi,
+                                   const float* __restrict__ lam,
+                                   const int* __restrict__ tab, int n_cvt,
+                                   int S, int G, int M, int n,
+                                   int calc_null, int reml, int wy_lane,
+                                   float* d1f, int s0, int count,
+                                   float* scratch) {
+  const int sl = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = blockIdx.y;
+  if (sl >= count) return;
+  const int s = s0 + sl;
+  if constexpr (MC == GT_DYN) {
+    // row r of thread (g, sl) at scratch[(r ni + k) nt + g count + sl]
+    const long nt = (long)count * G, ni = gt_n_index(n_cvt);
+    float* base = scratch + (long)g * count + sl;
+    lambda_grid_thread<GtStrided>(
+        GtStrided{base, nt}, GtStrided{base + ni * nt, nt},
+        GtStrided{base + 2 * ni * nt, nt}, GtStrided{base + 3 * ni * nt, nt},
+        xcross, xx, shared, trace_hi, lam, tab, n_cvt, S, G, M, n, calc_null,
+        reml, wy_lane, d1f, s, g);
+  } else {
+    float a0[GtDims<MC>::NI], a1[GtDims<MC>::NI], b0[GtDims<MC>::NI],
+        b1[GtDims<MC>::NI];
+    lambda_grid_thread<float*>(a0, a1, b0, b1, xcross, xx, shared, trace_hi,
+                               lam, tab, n_cvt, S, G, M, n, calc_null, reml,
+                               wy_lane, d1f, s, g);
+  }
+}
+
 extern "C" int lambda_grid_launch(const void* xcross, const void* xx,
                                   const void* shared, const void* trace_hi,
                                   const void* lam, const void* tab,
                                   int n_cvt, int S, int G, int M, int n,
                                   int calc_null, int reml, int wy_lane,
-                                  void* d1f, void* stream) {
-  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
-  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
-  auto kern = n_cvt <= GT_MAX_CVT ? lambda_grid_kernel<GT_MAX_CVT>
-                                  : lambda_grid_kernel<GT_WIDE_CVT>;
-  if (S > 0 && G > 0) {
-    dim3 grid((S + 127) / 128, G);
+                                  void* d1f, int s0, int count,
+                                  void* scratch, void* stream) {
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs, above
+  // GT_WIDE_CVT the GT_DYN form on lanes [s0, s0 + count) with `scratch`
+  const int form = gt_form(n_cvt);
+  auto kern = form == GT_MAX_CVT    ? lambda_grid_kernel<GT_MAX_CVT>
+              : form == GT_WIDE_CVT ? lambda_grid_kernel<GT_WIDE_CVT>
+                                    : lambda_grid_kernel<GT_DYN>;
+  if (count > 0 && G > 0) {
+    dim3 grid((count + 127) / 128, G);
     kern<<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const float*)xcross, (const float*)xx, (const float*)shared,
         (const float*)trace_hi, (const float*)lam, (const int*)tab, n_cvt, S,
-        G, M, n, calc_null, reml, wy_lane, (float*)d1f);
+        G, M, n, calc_null, reml, wy_lane, (float*)d1f, s0, count,
+        (float*)scratch);
   }
   return (int)cudaGetLastError();
+}
+
+// bytes of a lane's scratch: four rows for each of its G threads (0
+// where a fixed instantiation takes n_cvt)
+extern "C" long lambda_grid_lane_bytes(int n_cvt, int G) {
+  return gt_form(n_cvt) == GT_DYN ? 16L * G * gt_n_index(n_cvt) : 0;
 }
 
 GT_ERROR_FN(lambda_grid)

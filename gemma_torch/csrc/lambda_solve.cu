@@ -30,6 +30,9 @@
 // every evaluation; keeping the row in shared memory across iterations
 // is later work.  Lanes finish independently: no lane waits for the
 // slowest one, unlike the lock-step while loops it replaces.
+// Above 32 covariates its working set lives in a per-lane slice of global
+// scratch (the GT_DYN form, lmm_lane.cuh), lanes [s0, s0 + count) a
+// launch.
 #include "lmm_lane.cuh"
 
 // T is the working type: float, the arithmetic K3 always ran, for blocks
@@ -50,9 +53,10 @@ lambda_solve_kernel(const float* __restrict__ d1f, const T* __restrict__ fine,
                     int M, int calc_null, int reml, int ustride,
                     int wstride, int xstride, T l_min, T l_max, T epsrel,
                     int max_iter, T logf_const, float* lam_out,
-                    float* logf_out) {
-  SolveSmem<T, MC>& sm = gt_smem<SolveSmem<T, MC>>();
-  const int s = blockIdx.x;
+                    float* logf_out, int s0, unsigned char* scratch) {
+  gt_with_solve<T, MC>(scratch, gt_solve_lane_bytes(n_cvt, sizeof(T)), n_cvt,
+                       [&](auto& sm) {
+  const int s = s0 + blockIdx.x;
   SolveCtx<float, T> c;
   c.eval = eval;
   c.UtWy = UtWy + (long)s * ustride;
@@ -135,6 +139,7 @@ lambda_solve_kernel(const float* __restrict__ d1f, const T* __restrict__ fine,
     lam_out[s] = (float)best_lam;
     logf_out[s] = (float)best_logf;
   }
+  });
 }
 
 template <int MC>
@@ -145,32 +150,36 @@ static void lambda_solve_run(const void* d1f, const void* fine, int n_region,
                              int reml, int ustride, int wstride, int xstride,
                              int wide, double l_min, double l_max,
                              double epsrel, int max_iter, double logf_const,
-                             void* lam_out, void* logf_out,
-                             cudaStream_t stream) {
+                             void* lam_out, void* logf_out, int s0,
+                             int count, void* scratch, cudaStream_t stream) {
   if (wide) {
     auto kern = lambda_solve_kernel<double, MC>;
     const int smem = gt_smem_bytes<SolveSmem<double, MC>>(kern);
-    kern<<<S, GT_THREADS, smem, stream>>>(
+    kern<<<count, GT_THREADS, smem, stream>>>(
         (const float*)d1f, (const double*)fine, n_region, refine,
         (const float*)eval, (const float*)UtWy, (const float*)wy,
         (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
         ustride, wstride, xstride, l_min, l_max, epsrel, max_iter,
-        logf_const, (float*)lam_out, (float*)logf_out);
+        logf_const, (float*)lam_out, (float*)logf_out, s0,
+        (unsigned char*)scratch);
   } else {
     auto kern = lambda_solve_kernel<float, MC>;
     const int smem = gt_smem_bytes<SolveSmem<float, MC>>(kern);
-    kern<<<S, GT_THREADS, smem, stream>>>(
+    kern<<<count, GT_THREADS, smem, stream>>>(
         (const float*)d1f, (const float*)fine, n_region, refine,
         (const float*)eval, (const float*)UtWy, (const float*)wy,
         (const float*)Utx, (const int*)tab, n_cvt, S, n, M, calc_null, reml,
         ustride, wstride, xstride, (float)l_min, (float)l_max,
         (float)epsrel, max_iter, (float)logf_const, (float*)lam_out,
-        (float*)logf_out);
+        (float*)logf_out, s0, (unsigned char*)scratch);
   }
 }
 
 // `fine` is the float32 grid (wide = 0) or the float64 one (wide = 1).
-// Above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs.
+// Above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs, above
+// GT_WIDE_CVT the GT_DYN form on lanes [s0, s0 + count) with `scratch`
+// (lambda_solve_lane_bytes a lane); the fixed forms take s0 = 0, count =
+// S.
 extern "C" int lambda_solve_launch(const void* d1f, const void* fine,
                                    int n_region, int refine,
                                    const void* eval, const void* UtWy,
@@ -181,16 +190,24 @@ extern "C" int lambda_solve_launch(const void* d1f, const void* fine,
                                    int wide, double l_min, double l_max,
                                    double epsrel, int max_iter,
                                    double logf_const, void* lam_out,
-                                   void* logf_out, void* stream) {
-  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
-  if (S > 0)
-    (n_cvt <= GT_MAX_CVT ? lambda_solve_run<GT_MAX_CVT>
-                         : lambda_solve_run<GT_WIDE_CVT>)(
+                                   void* logf_out, int s0, int count,
+                                   void* scratch, void* stream) {
+  const int form = gt_form(n_cvt);
+  if (count > 0)
+    (form == GT_MAX_CVT    ? lambda_solve_run<GT_MAX_CVT>
+     : form == GT_WIDE_CVT ? lambda_solve_run<GT_WIDE_CVT>
+                           : lambda_solve_run<GT_DYN>)(
         d1f, fine, n_region, refine, eval, UtWy, wy, Utx, tab, n_cvt, S, n,
         M, calc_null, reml, ustride, wstride, xstride, wide, l_min, l_max,
-        epsrel, max_iter, logf_const, lam_out, logf_out,
+        epsrel, max_iter, logf_const, lam_out, logf_out, s0, count, scratch,
         (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// bytes of a lane's scratch (0 where a fixed instantiation takes n_cvt)
+extern "C" long lambda_solve_lane_bytes(int n_cvt, int wide) {
+  if (gt_form(n_cvt) != GT_DYN) return 0;
+  return gt_solve_lane_bytes(n_cvt, wide ? 8 : 4);
 }
 
 GT_ERROR_FN(lambda_solve)

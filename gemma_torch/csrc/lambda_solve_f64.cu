@@ -27,6 +27,9 @@
 // the n_region + 1 scan points, one per Brent step, one per Newton step
 // and the logf at each candidate and both ends, per lane; the lane's Utx
 // row is re-read from L1/L2 by each.
+// Above 32 covariates its working set lives in a per-lane slice of global
+// scratch (the GT_DYN form, lmm_lane.cuh), lanes [s0, s0 + count) a
+// launch.
 #include "lmm_lane.cuh"
 
 typedef SolveCtx<double, double> Ctx64;
@@ -181,9 +184,10 @@ lambda_solve_f64_kernel(const double* __restrict__ grid, int n_region,
                         double brent_epsrel, double newton_epsrel,
                         int brent_max_iter, int newton_max_iter,
                         double logf_const, double* lam_out,
-                        double* logf_out) {
-  Smem64<MC>& sm = gt_smem<Smem64<MC>>();
-  const int s = blockIdx.x;
+                        double* logf_out, int s0, unsigned char* scratch) {
+  gt_with_solve<double, MC>(scratch, gt_solve_lane_bytes(n_cvt, 8), n_cvt,
+                            [&](auto& sm) {
+  const int s = s0 + blockIdx.x;
   Ctx64 c;
   c.eval = eval;
   c.UtWy = UtWy + (long)s * ustride;
@@ -266,6 +270,7 @@ lambda_solve_f64_kernel(const double* __restrict__ grid, int n_region,
     lam_out[s] = failed ? NAN : best_lam;
     logf_out[s] = failed ? NAN : best_logf;
   }
+  });
 }
 
 extern "C" int lambda_solve_f64_launch(
@@ -275,22 +280,33 @@ extern "C" int lambda_solve_f64_launch(
     int reml, int ustride, int wstride, int xstride, double l_min,
     double l_max, double brent_epsrel,
     double newton_epsrel, int brent_max_iter, int newton_max_iter,
-    double logf_const, void* lam_out, void* logf_out, void* stream) {
-  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
-  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
-  auto kern = n_cvt <= GT_MAX_CVT ? lambda_solve_f64_kernel<GT_MAX_CVT>
-                                  : lambda_solve_f64_kernel<GT_WIDE_CVT>;
-  const int smem = n_cvt <= GT_MAX_CVT
+    double logf_const, void* lam_out, void* logf_out, int s0, int count,
+    void* scratch, void* stream) {
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs, above
+  // GT_WIDE_CVT the GT_DYN form on lanes [s0, s0 + count) with `scratch`
+  const int form = gt_form(n_cvt);
+  auto kern = form == GT_MAX_CVT    ? lambda_solve_f64_kernel<GT_MAX_CVT>
+              : form == GT_WIDE_CVT ? lambda_solve_f64_kernel<GT_WIDE_CVT>
+                                    : lambda_solve_f64_kernel<GT_DYN>;
+  const int smem = form == GT_MAX_CVT
                        ? gt_smem_bytes<Smem64<GT_MAX_CVT>>(kern)
-                       : gt_smem_bytes<Smem64<GT_WIDE_CVT>>(kern);
-  if (S > 0)
-    kern<<<S, GT_THREADS, smem, (cudaStream_t)stream>>>(
+                   : form == GT_WIDE_CVT
+                       ? gt_smem_bytes<Smem64<GT_WIDE_CVT>>(kern)
+                       : 0;
+  if (count > 0)
+    kern<<<count, GT_THREADS, smem, (cudaStream_t)stream>>>(
         (const double*)grid, n_region, (const double*)eval,
         (const double*)UtWy, (const double*)wy, (const double*)Utx,
         (const double*)iab_logdiag, (const int*)tab, n_cvt, n, M, calc_null,
         reml, ustride, wstride, xstride, l_min, l_max, brent_epsrel, newton_epsrel, brent_max_iter,
-        newton_max_iter, logf_const, (double*)lam_out, (double*)logf_out);
+        newton_max_iter, logf_const, (double*)lam_out, (double*)logf_out, s0,
+        (unsigned char*)scratch);
   return (int)cudaGetLastError();
+}
+
+// bytes of a lane's scratch (0 where a fixed instantiation takes n_cvt)
+extern "C" long lambda_solve_f64_lane_bytes(int n_cvt) {
+  return gt_form(n_cvt) == GT_DYN ? gt_solve_lane_bytes(n_cvt, 8) : 0;
 }
 
 GT_ERROR_FN(lambda_solve_f64)

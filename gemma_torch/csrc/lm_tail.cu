@@ -27,6 +27,12 @@
 
 #define LM_WARPS 8
 
+template <typename T>
+__device__ __forceinline__ void lm_tail_finish(
+    double rr, double rv, double q, double b, const double* vPwv, int s,
+    int n, int c, int gene, int se_score, T* beta_out, T* se_out, T* pw_out,
+    T* pl_out, T* ps_out);
+
 template <typename T, int MC>
 __global__ void __launch_bounds__(LM_WARPS * 32)
 lm_tail_kernel(const T* __restrict__ rows, const T* __restrict__ v,
@@ -68,6 +74,71 @@ lm_tail_kernel(const T* __restrict__ rows, const T* __restrict__ v,
     q += rw[a] * t;
     b += rw[a] * WtWi_Wtv[a];
   }
+  lm_tail_finish<T>(rr, rv, q, b, vPwv, s, n, c, gene, se_score, beta_out,
+                    se_out, pw_out, pl_out, ps_out);
+}
+
+// The GT_DYN form (above GT_WIDE_CVT covariates): the same warp per row,
+// r'W taken GT_WIDE_CVT columns a pass over the row and kept in the row's
+// slice of `rw_scratch` (c doubles), then q and b from it on lane 0.  The
+// order of every sum is the fixed forms'.
+template <typename T>
+__global__ void __launch_bounds__(LM_WARPS * 32)
+lm_tail_dyn_kernel(const T* __restrict__ rows, const T* __restrict__ v,
+                   const T* __restrict__ W, const double* __restrict__ WtWi,
+                   const double* __restrict__ WtWi_Wtv,
+                   const double* __restrict__ vPwv, int S, int n, int c,
+                   int gene, int se_score, T* beta_out, T* se_out, T* pw_out,
+                   T* pl_out, T* ps_out, double* rw_scratch) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * LM_WARPS + (threadIdx.x >> 5);
+  if (s >= S) return;  // the whole warp leaves together
+  const T* r = rows + (long)s * n;
+  double* rw = rw_scratch + (long)s * c;
+  double rr = 0.0, rv = 0.0;
+  for (int a0 = 0; a0 < c; a0 += GT_WIDE_CVT) {
+    double acc[GT_WIDE_CVT];
+#pragma unroll
+    for (int a = 0; a < GT_WIDE_CVT; ++a) acc[a] = 0.0;
+    for (int i = lane; i < n; i += 32) {
+      const double ri = (double)r[i];
+      if (a0 == 0) {
+        rr += ri * ri;
+        rv += ri * (double)v[i];
+      }
+#pragma unroll
+      for (int a = 0; a < GT_WIDE_CVT; ++a)
+        if (a0 + a < c) acc[a] += ri * (double)W[(long)i * c + a0 + a];
+    }
+#pragma unroll
+    for (int a = 0; a < GT_WIDE_CVT; ++a)
+      if (a0 + a < c) {
+        const double t = gt_warp_sum(acc[a]);
+        if (lane == 0) rw[a0 + a] = t;
+      }
+  }
+  rr = gt_warp_sum(rr);
+  rv = gt_warp_sum(rv);
+  if (lane != 0) return;
+
+  double q = 0.0, b = 0.0;
+  for (int a = 0; a < c; ++a) {
+    double t = 0.0;
+    for (int k = 0; k < c; ++k) t += WtWi[(long)a * c + k] * rw[k];
+    q += rw[a] * t;
+    b += rw[a] * WtWi_Wtv[a];
+  }
+  lm_tail_finish<T>(rr, rv, q, b, vPwv, s, n, c, gene, se_score, beta_out,
+                    se_out, pw_out, pl_out, ps_out);
+}
+
+// the tests from the sums: rr = r'r, rv = r'v, q = r'W (W'W)^-1 W'r,
+// b = r'W (W'W)^-1 W'v
+template <typename T>
+__device__ __forceinline__ void lm_tail_finish(
+    double rr, double rv, double q, double b, const double* vPwv, int s,
+    int n, int c, int gene, int se_score, T* beta_out, T* se_out, T* pw_out,
+    T* pl_out, T* ps_out) {
   const double rPwr = rr - q;
   const double xPwy = rv - b;
   const double xPwx = gene ? vPwv[0] : rPwr;
@@ -89,14 +160,21 @@ static int gt_lm_tail_run(const void* rows, const void* v, const void* W,
                           const void* WtWi, const void* WtWi_Wtv,
                           const void* vPwv, int S, int n, int c, int gene,
                           int se_score, void* beta, void* se, void* pw,
-                          void* pl, void* ps, void* stream) {
-  if (c > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
-  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
-  auto kern = c <= GT_MAX_CVT ? lm_tail_kernel<T, GT_MAX_CVT>
-                              : lm_tail_kernel<T, GT_WIDE_CVT>;
-  if (S > 0)
-    kern<<<(S + LM_WARPS - 1) / LM_WARPS, LM_WARPS * 32, 0,
-           (cudaStream_t)stream>>>(
+                          void* pl, void* ps, void* scratch, void* stream) {
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs, above
+  // GT_WIDE_CVT the GT_DYN form with `scratch` (c doubles a row)
+  const int form = gt_form(c);
+  const dim3 grid((S + LM_WARPS - 1) / LM_WARPS);
+  if (S > 0 && form == GT_DYN)
+    lm_tail_dyn_kernel<T><<<grid, LM_WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const T*)rows, (const T*)v, (const T*)W, (const double*)WtWi,
+        (const double*)WtWi_Wtv, (const double*)vPwv, S, n, c, gene,
+        se_score, (T*)beta, (T*)se, (T*)pw, (T*)pl, (T*)ps,
+        (double*)scratch);
+  else if (S > 0)
+    (form == GT_MAX_CVT ? lm_tail_kernel<T, GT_MAX_CVT>
+                        : lm_tail_kernel<T, GT_WIDE_CVT>)<<<
+        grid, LM_WARPS * 32, 0, (cudaStream_t)stream>>>(
         (const T*)rows, (const T*)v, (const T*)W, (const double*)WtWi,
         (const double*)WtWi_Wtv, (const double*)vPwv, S, n, c, gene,
         se_score, (T*)beta, (T*)se, (T*)pw, (T*)pl, (T*)ps);
@@ -108,10 +186,16 @@ static int gt_lm_tail_run(const void* rows, const void* v, const void* W,
                       const void* WtWi, const void* WtWi_Wtv,               \
                       const void* vPwv, int S, int n, int c, int gene,      \
                       int se_score, void* beta, void* se, void* pw,         \
-                      void* pl, void* ps, void* stream) {                   \
+                      void* pl, void* ps, void* scratch, void* stream) {    \
     return gt_lm_tail_run<T>(rows, v, W, WtWi, WtWi_Wtv, vPwv, S, n, c,     \
-                             gene, se_score, beta, se, pw, pl, ps, stream); \
+                             gene, se_score, beta, se, pw, pl, ps, scratch, \
+                             stream);                                       \
   }
+
+// bytes of a row's scratch (0 where a fixed instantiation takes c)
+extern "C" long lm_tail_lane_bytes(int c) {
+  return gt_form(c) == GT_DYN ? 8L * c : 0;
+}
 
 GT_LM_TAIL_ENTRY(lm_tail_launch, float)
 GT_LM_TAIL_ENTRY(lm_tail_f64_launch, double)

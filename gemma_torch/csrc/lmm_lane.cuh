@@ -52,6 +52,63 @@ struct SolveSmem {
   T bc[4];
 };
 
+// The GT_DYN form (above GT_WIDE_CVT covariates): the same arrays in the
+// lane's slice of global scratch; red stays in shared memory.
+template <typename T>
+struct SolveSmem<T, GT_DYN> {
+  T* red;
+  T* q;
+  T* rows[6];
+  T* G;
+  T* beta;
+  int* pa;
+  int* pb;
+  T* bc;
+};
+
+// bytes of one lane's slice (gt_solve_view's layout)
+__host__ __device__ inline long gt_solve_lane_bytes(int n_cvt, int tsize) {
+  const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2, NG = M;
+  const long Q = 3 * M + 3 * C1 + 5;
+  return gt_r16(Q * tsize) + 6 * gt_r16(gt_n_index(n_cvt) * (long)tsize) +
+         gt_r16(C1 * C1 * tsize) + gt_r16(C1 * tsize) + 2 * gt_r16(NG * 4) +
+         gt_r16(4 * tsize);
+}
+
+template <typename T>
+__device__ inline SolveSmem<T, GT_DYN> gt_solve_view(unsigned char* lane,
+                                                     int n_cvt) {
+  __shared__ T red[GT_WARPS * 8];
+  const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
+  GtCarve cv{lane};
+  SolveSmem<T, GT_DYN> v;
+  v.red = red;
+  v.q = cv.take<T>(3 * M + 3 * C1 + 5);
+  for (int r = 0; r < 6; ++r) v.rows[r] = cv.take<T>(gt_n_index(n_cvt));
+  v.G = cv.take<T>(C1 * C1);
+  v.beta = cv.take<T>(C1);
+  v.pa = cv.take<int>(M);
+  v.pb = cv.take<int>(M);
+  v.bc = cv.take<T>(4);
+  return v;
+}
+
+// The working set of a lane: the instantiation's shared memory, or for
+// GT_DYN the lane's slice of `scratch` (lane_bytes a lane, indexed by the
+// block), passed to `body`.
+template <typename T, int MC, typename F>
+__device__ __forceinline__ void gt_with_solve(unsigned char* scratch,
+                                              long lane_bytes, int n_cvt,
+                                              F body) {
+  if constexpr (MC == GT_DYN) {
+    SolveSmem<T, GT_DYN> v =
+        gt_solve_view<T>(scratch + (long)blockIdx.x * lane_bytes, n_cvt);
+    body(v);
+  } else {
+    body(gt_smem<SolveSmem<T, MC>>());
+  }
+}
+
 // The (a, b) index pairs of the upper triangle of the CZ×CZ Gram, where
 // CZ counts the covariates plus x for the alternative model.
 template <typename T, int MC>

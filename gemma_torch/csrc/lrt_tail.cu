@@ -27,6 +27,9 @@
 // Bound: speed mode — bytes (one read of the lane's float32 Utx row) and
 // two float64 passes over n per lane; parity mode — bytes (16 bytes in,
 // 16 out per lane) and the tail's few hundred float64 operations.
+// Above 32 covariates its working set lives in a per-lane slice of global
+// scratch (the GT_DYN form, lmm_lane.cuh), lanes [s0, s0 + count) a
+// launch.
 #include "lmm_lane.cuh"
 #include "tails.cuh"
 
@@ -38,9 +41,11 @@ lrt_recompute_kernel(const float* __restrict__ lam,
                      const float* __restrict__ Utx, int n_cvt, int n,
                      int calc_null, int ustride, int xstride,
                      double logf_const, const double* __restrict__ logl0,
-                     int l0_stride, double* logl_out, double* p_out) {
-  SolveSmem<double, MC>& sm = gt_smem<SolveSmem<double, MC>>();
-  const int s = blockIdx.x;
+                     int l0_stride, double* logl_out, double* p_out,
+                     int s0, unsigned char* scratch) {
+  gt_with_solve<double, MC>(scratch, gt_solve_lane_bytes(n_cvt, 8), n_cvt,
+                            [&](auto& sm) {
+  const int s = s0 + blockIdx.x;
   SolveCtx<float, double> c;
   c.eval = eval;
   c.UtWy = UtWy + (long)s * ustride;
@@ -61,6 +66,7 @@ lrt_recompute_kernel(const float* __restrict__ lam,
     if (p_out != nullptr)
       p_out[s] = gt_chisq_sf(2.0 * (l1 - logl0[(long)s * l0_stride]), 1.0);
   }
+  });
 }
 
 __global__ void lrt_tail_only_kernel(const double* __restrict__ logl_in,
@@ -80,26 +86,36 @@ extern "C" int lrt_tail_launch(int recompute, const void* lam,
                                int calc_null, int ustride, int xstride,
                                double logf_const, const void* logl_in,
                                const void* logl0, int l0_stride,
-                               void* logl_out, void* p_out, void* stream) {
-  if (n_cvt > GT_WIDE_CVT) return (int)cudaErrorInvalidValue;
-  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs
-  auto kern = n_cvt <= GT_MAX_CVT ? lrt_recompute_kernel<GT_MAX_CVT>
-                                  : lrt_recompute_kernel<GT_WIDE_CVT>;
-  if (S > 0 && recompute) {
+                               void* logl_out, void* p_out, int s0,
+                               int count, void* scratch, void* stream) {
+  // above GT_MAX_CVT covariates the GT_WIDE_CVT instantiation runs, above
+  // GT_WIDE_CVT the GT_DYN form on lanes [s0, s0 + count) with `scratch`
+  const int form = gt_form(n_cvt);
+  auto kern = form == GT_MAX_CVT    ? lrt_recompute_kernel<GT_MAX_CVT>
+              : form == GT_WIDE_CVT ? lrt_recompute_kernel<GT_WIDE_CVT>
+                                    : lrt_recompute_kernel<GT_DYN>;
+  if (count > 0 && recompute) {
     const int smem =
-        n_cvt <= GT_MAX_CVT
+        form == GT_MAX_CVT
             ? gt_smem_bytes<SolveSmem<double, GT_MAX_CVT>>(kern)
             : gt_smem_bytes<SolveSmem<double, GT_WIDE_CVT>>(kern);
-    kern<<<S, GT_THREADS, smem, (cudaStream_t)stream>>>(
+    kern<<<count, GT_THREADS, form == GT_DYN ? 0 : smem,
+           (cudaStream_t)stream>>>(
         (const float*)lam, (const float*)eval, (const float*)UtWy,
         (const float*)Utx, n_cvt, n, calc_null, ustride, xstride, logf_const,
-        (const double*)logl0, l0_stride, (double*)logl_out, (double*)p_out);
+        (const double*)logl0, l0_stride, (double*)logl_out, (double*)p_out,
+        s0, (unsigned char*)scratch);
   } else if (S > 0)
     lrt_tail_only_kernel<<<(S + GT_THREADS - 1) / GT_THREADS, GT_THREADS, 0,
                            (cudaStream_t)stream>>>(
         (const double*)logl_in, S, (const double*)logl0, l0_stride,
         (double*)logl_out, (double*)p_out);
   return (int)cudaGetLastError();
+}
+
+// bytes of a lane's scratch (0 where a fixed instantiation takes n_cvt)
+extern "C" long lrt_tail_lane_bytes(int n_cvt) {
+  return gt_form(n_cvt) == GT_DYN ? gt_solve_lane_bytes(n_cvt, 8) : 0;
 }
 
 GT_ERROR_FN(lrt_tail)

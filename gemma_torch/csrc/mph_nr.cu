@@ -24,11 +24,17 @@
 // derivative sums, the Hessian's p2² entries across the block's threads
 // and its inverse on thread 0 (Gauss-Jordan, partial pivoting).  The
 // sums and the Hessian live in a per-lane scratch the wrapper allocates
-// (mvlmm_core.nr_scratch mirrors mv_nr_scratch).  Hvar = -H^-1 at the last point where
+// (its size: mph_nr_lane_bytes).  Hvar = -H^-1 at the last point where
 // derivatives were taken, as the reference returns it.
 //
 // Bound: operations — O(n (d² c² + d³)) float64 multiply-adds per
 // derivative evaluation and O(n d c²) per likelihood evaluation.
+//
+// Lanes [s0, s0 + count) of a launch; the scratch holds `count` lanes
+// (the wrapper splits a block's lanes under a byte budget).  Beyond d = 8
+// or 10 design rows the run-time-sized form (MD = MC = 0, mvlmm_lane.cuh)
+// runs, with its state, v, vsave, step, grad, thread 0's frame and the
+// trace tables' per-thread c×c products in the scratch too.
 #include "mvlmm_lane.cuh"
 
 struct NrFam {
@@ -76,31 +82,42 @@ __device__ inline void mv_unpack(int d, const double* v, double* Vg,
   }
 }
 
-__device__ inline bool mv_is_pd(int d, const double* M) {
-  double W[MV_MAX_D * MV_MAX_D], w[MV_MAX_D], V[MV_MAX_D * MV_MAX_D];
+// the run-time-sized form's additions to a lane's scratch: the state, v,
+// vsave, step, grad, thread 0's frame, the trace tables' per-thread
+// products and, where they outgrow MV_ST_SMEM, the staged rows
+__host__ __device__ inline long mv_nr_dyn_extra(int d, int c) {
+  const long p2 = (long)d * (d + 1);
+  return mv_state_len(d, c) + 4 * p2 + mv_frame_len(d, c) +
+         2L * MV_THREADS * c * c +
+         (mv_st_smem(d, c) ? 0 : (long)mv_nrow(d, c) * MV_CH);
+}
+
+template <int MD>
+__device__ inline bool mv_is_pd(int d, const double* M, double* fr) {
+  MvTmp<double, MD * MD> tW, tV;
+  MvTmp<double, MD> tw;
+  double* W = tW.take(fr, d * d);
+  double* w = tw.take(fr, d);
+  double* V = tV.take(fr, d * d);
   for (int i = 0; i < d * d; ++i) W[i] = M[i];
-  mv_eigh(d, W, w, V, nullptr);
+  mv_eigh<MD>(d, W, w, V, nullptr, fr);
   for (int i = 0; i < d; ++i)
     if (!(w[i] > 0.0)) return false;
   return true;
 }
 
-template <typename T>
+template <typename T, int MD, int MC>
 __global__ void __launch_bounds__(MV_THREADS)
 mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
               int r, const T* __restrict__ eval, const T* __restrict__ X0,
               const T* __restrict__ Y, const T* __restrict__ R,
               const double* __restrict__ Vg0, const double* __restrict__ Ve0,
               int vstride, double* scratch, double* Vg_out, double* Ve_out,
-              double* logl_out, double* Hvar_out) {
-  __shared__ double st[MV_NROW][MV_CH];
-  __shared__ MvState s;
-  __shared__ double v[MV_MAX_D * (MV_MAX_D + 1)],
-      vsave[MV_MAX_D * (MV_MAX_D + 1)], step[MV_MAX_D * (MV_MAX_D + 1)],
-      grad[MV_MAX_D * (MV_MAX_D + 1)];
+              double* logl_out, double* Hvar_out, int s0) {
+  __shared__ MvState<MD, MC> s;
   __shared__ double logl_const, logl;
   __shared__ int accepted, done;
-  const int lane = blockIdx.x, tid = threadIdx.x;
+  const int lane = s0 + blockIdx.x, tid = threadIdx.x;
   const MvLane<T> L = mv_lane(eval, X0, Y, R, n, d, c0, r, lane);
   const int c = L.c, dd = d * d, p2 = d * (d + 1), nv = p2 / 2;
 
@@ -113,15 +130,41 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
   MvPass PAr, PBr;           // the REML layout fixes the scratch offsets
   NrFam Fr;
   mv_nr_passes(PAr, PBr, Fr, d, c, 1);
-  double* accA = scratch + (long)lane * mv_nr_scratch(d, c);
+  const long lane_len =
+      mv_nr_scratch(d, c) + (MD == 0 ? mv_nr_dyn_extra(d, c) : 0);
+  double* accA = scratch + (long)blockIdx.x * lane_len;
   double* accB = accA + mv_pass_size(PAr);
   double* H = accB + mv_pass_size(PBr);
-  double* Hinv = H + p2 * p2;
-  double* St = Hinv + p2 * p2;
-  double* Tt = St + nv * dd;
+  double* Hinv = H + (long)p2 * p2;
+  double* St = Hinv + (long)p2 * p2;
+  double* Tt = St + (long)nv * dd;
   double* fv = Tt + 4 * dd;
+  double *v, *vsave, *step, *grad;
+  double* w = fv + (long)p2 * d * c;  // the run-time-sized form's part
+  double* fr = nullptr;       // thread 0's frame in it
+  double* xfr = nullptr;      // the trace tables' per-thread products
+  double* wst = nullptr;      // the staged rows in it, if there
+  if constexpr (MD == 0) {
+    v = w + mv_state_len(d, c);
+    vsave = v + p2;
+    step = vsave + p2;
+    grad = step + p2;
+    fr = grad + p2;
+    xfr = fr + mv_frame_len(d, c);
+    if (!mv_st_smem(d, c)) wst = xfr + 2L * MV_THREADS * c * c;
+  } else {
+    __shared__ double v_s[MV_MAX_D * (MV_MAX_D + 1)],
+        vsave_s[MV_MAX_D * (MV_MAX_D + 1)], step_s[MV_MAX_D * (MV_MAX_D + 1)],
+        grad_s[MV_MAX_D * (MV_MAX_D + 1)];
+    v = v_s;
+    vsave = vsave_s;
+    step = step_s;
+    grad = grad_s;
+  }
+  const MvSt st = mv_st<MD, MC>(wst);
 
   if (tid == 0) {
+    mv_state_bind(s, w, d, c);
     for (int i = 0; i < dd; ++i) {
       s.Vg[i] = Vg0[(long)lane * vstride + i];
       s.Ve[i] = Ve0[(long)lane * vstride + i];
@@ -140,7 +183,8 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
     done = 0;
   }
   mv_accumulate(L, s, STAGE_X, PX, st, accA);
-  if (tid == 0) logl_const = mv_logl_const(accA, PX, reml, n, nullptr);
+  if (tid == 0)
+    logl_const = mv_logl_const<MC>(accA, PX, reml, n, nullptr, fr);
   __syncthreads();
 
   for (int t = 0; t < max_iter; ++t) {
@@ -165,13 +209,13 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
         for (int a = 0; a < p2; ++a)
           v[a] = first ? vsave[a] : vsave[a] - scale * step[a];
         mv_unpack(d, v, s.Vg, s.Ve);
-        pd = mv_is_pd(d, s.Vg) && mv_is_pd(d, s.Ve);
-        mv_eigen_proc(d, s.Vg, s.Ve, s, nullptr);
+        pd = mv_is_pd<MD>(d, s.Vg, fr) && mv_is_pd<MD>(d, s.Ve, fr);
+        mv_eigen_proc(d, s.Vg, s.Ve, s, nullptr, fr);
       }
       __syncthreads();
       mv_accumulate(L, s, STAGE_Z, PC, st, accA);
       if (tid == 0) {
-        const double ldq = mv_gls(accA, PC, s);
+        const double ldq = mv_gls(accA, PC, s, fr);
         const double lt = mv_logl(accA, PC, s, ldq, reml, logl_const, n);
         lnew = lt;
         pdnew = pd;
@@ -196,11 +240,11 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
     // the derivatives at the new point
     if (tid == 0) {
       mv_unpack(d, v, s.Vg, s.Ve);
-      mv_eigen_proc(d, s.Vg, s.Ve, s, nullptr);
+      mv_eigen_proc(d, s.Vg, s.Ve, s, nullptr, fr);
     }
     __syncthreads();
     mv_accumulate(L, s, STAGE_Z, PA, st, accA);
-    if (tid == 0) mv_gls(accA, PA, s);
+    if (tid == 0) mv_gls(accA, PA, s, fr);
     __syncthreads();
     mv_accumulate(L, s, STAGE_PY, PB, st, accB);
     if (tid == 0) {
@@ -249,7 +293,10 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
         const double* Nw = accA + PA.base[F.n[w]] + mv_ti(l, m, d) * mv_tri(c);
         const double* Ql = s.Qi + l * c * c;
         const double* Qm = s.Qi + m * c * c;
-        double X1[MV_MAX_C * MV_MAX_C], X2[MV_MAX_C * MV_MAX_C];
+        MvTmp<double, MC * MC> tX1, tX2;
+        double* xf = xfr + 2L * tid * c * c;
+        double* X1 = tX1.take(xf, c * c);
+        double* X2 = tX2.take(xf, c * c);
         for (int i = 0; i < c; ++i)
           for (int j = 0; j < c; ++j) {
             double a1 = 0.0, a2 = 0.0;
@@ -312,15 +359,30 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
   extern "C" int name##_launch(                                              \
       int reml, int max_iter, double prec, int S, int n, int d, int c0,      \
       int r, const void* eval, const void* X0, const void* Y, const void* R, \
-      const void* Vg0, const void* Ve0, int vstride, void* scratch,          \
-      void* Vg, void* Ve, void* logl, void* Hvar, void* stream) {            \
-    if (S > 0)                                                               \
-      mph_nr_kernel<T><<<S, MV_THREADS, 0, (cudaStream_t)stream>>>(          \
+      const void* Vg0, const void* Ve0, int vstride, void* Vg, void* Ve,     \
+      void* logl, void* Hvar, int s0, int count, void* scratch,              \
+      void* stream) {                                                        \
+    const int c = c0 + r;                                                    \
+    const bool dyn = mv_dyn(d, c);                                           \
+    auto kern = dyn ? mph_nr_kernel<T, 0, 0>                                 \
+                    : mph_nr_kernel<T, MV_MAX_D, MV_MAX_C>;                  \
+    const int smem = dyn && mv_st_smem(d, c)                                 \
+                         ? mv_nrow(d, c) * MV_CH * 8 : 0;                    \
+    if (smem > 0)                                                            \
+      cudaFuncSetAttribute(kern,                                             \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,      \
+                           smem);                                            \
+    if (count > 0)                                                           \
+      kern<<<count, MV_THREADS, smem, (cudaStream_t)stream>>>(               \
           reml, max_iter, prec, n, d, c0, r, (const T*)eval, (const T*)X0,   \
           (const T*)Y, (const T*)R, (const double*)Vg0, (const double*)Ve0,  \
           vstride, (double*)scratch, (double*)Vg, (double*)Ve,               \
-          (double*)logl, (double*)Hvar);                                     \
+          (double*)logl, (double*)Hvar, s0);                                 \
     return (int)cudaGetLastError();                                          \
+  }                                                                          \
+  extern "C" long name##_lane_bytes(int d, int c) {                          \
+    return 8 * (mv_nr_scratch(d, c) +                                        \
+                (mv_dyn(d, c) ? mv_nr_dyn_extra(d, c) : 0));                 \
   }
 
 MPH_NR_LAUNCH(mph_nr, float)

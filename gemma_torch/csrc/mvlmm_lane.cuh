@@ -21,7 +21,18 @@
 // Passes are lists of families of sums (MvPass); the same lists give the
 // kernels their accumulator layouts and the host the size of K11's
 // scratch.
+//
+// The lane code is templated on (MD, MC), the bounds of d and c that its
+// arrays are sized for.  (MV_MAX_D, MV_MAX_C) = (8, 10) is the first
+// instantiation, the code the kernels always ran, in static shared memory
+// and thread-local arrays.  (0, 0) is the form sized at run time for any
+// d and c: the per-lane state, accumulators and thread 0's temporaries
+// live in a per-lane slice of global scratch (the wrapper splits a launch's
+// lanes under a byte budget, kernels.launch_lanes), and the staged rows in
+// dynamic shared memory where they fit MV_ST_SMEM, else in that slice too.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "tails.cuh"
@@ -32,6 +43,7 @@
 #define MV_CH 32
 #define MV_Q 8
 #define MV_NROW (3 + MV_MAX_C + 5 * MV_MAX_D)
+#define MV_ST_SMEM (160 * 1024)  // largest dynamic staged rows (bytes)
 #define MV_MAX_FAM 16
 #define MV_TINY 2.2250738585072014e-308
 #define MV_LOG_2PI 1.8378770664093453
@@ -42,6 +54,37 @@
 // index helpers
 
 __host__ __device__ inline int mv_tri(int c) { return c * (c + 1) / 2; }
+
+// whether (d, c) takes the run-time-sized form
+__host__ __device__ inline bool mv_dyn(int d, int c) {
+  return d > MV_MAX_D || c > MV_MAX_C;
+}
+
+// staged rows of a lane: 1, δ, δ², the c design rows and five d-rows
+__host__ __device__ inline int mv_nrow(int d, int c) { return 3 + c + 5 * d; }
+
+// whether a lane of the run-time-sized form stages its rows in dynamic
+// shared memory (else in its scratch)
+__host__ __device__ inline bool mv_st_smem(int d, int c) {
+  return (long)mv_nrow(d, c) * MV_CH * 8 <= MV_ST_SMEM;
+}
+
+// A thread's temporary array of n values of type U: a local array of the
+// fixed instantiation's size N, or (N == 0) the next n values of the
+// thread's frame `fr` in global scratch, which take() advances.
+template <typename U, int N>
+struct MvTmp {
+  U a[N];
+  __device__ __forceinline__ U* take(double*&, int) { return a; }
+};
+template <typename U>
+struct MvTmp<U, 0> {
+  __device__ __forceinline__ U* take(double*& fr, int n) {
+    U* p = reinterpret_cast<U*>(fr);
+    fr += ((long)n * sizeof(U) + 7) / 8;
+    return p;
+  }
+};
 
 // (i, j), i <= j, in row-major upper-triangle order
 __host__ __device__ inline int mv_ti(int i, int j, int c) {
@@ -160,16 +203,36 @@ struct MvRows {
   __device__ int R5(int l) const { return 3 + c + 4 * d + l; }
 };
 
-__device__ inline unsigned long long mv_pack(int a, int b = 0, int c = 0,
-                                             int d = 0, int e = 0,
-                                             int f = 0) {
-  return (unsigned long long)a | ((unsigned long long)b << 8) |
-         ((unsigned long long)c << 16) | ((unsigned long long)d << 24) |
-         ((unsigned long long)e << 32) | ((unsigned long long)f << 40);
+// A sum's descriptor: its six row indices, 8 bits each in one word (the
+// fixed instantiation: at most 53 rows) or 16 bits each (MvDesc6, the
+// run-time-sized form).
+struct MvDesc6 {
+  unsigned short r[6];
+};
+
+template <typename D>
+__device__ inline D mv_pack(int a, int b = 0, int c = 0, int d = 0, int e = 0,
+                            int f = 0) {
+  if constexpr (sizeof(D) == sizeof(unsigned long long)) {
+    return (unsigned long long)a | ((unsigned long long)b << 8) |
+           ((unsigned long long)c << 16) | ((unsigned long long)d << 24) |
+           ((unsigned long long)e << 32) | ((unsigned long long)f << 40);
+  } else {
+    return MvDesc6{{(unsigned short)a, (unsigned short)b, (unsigned short)c,
+                    (unsigned short)d, (unsigned short)e, (unsigned short)f}};
+  }
+}
+
+__device__ __forceinline__ int mv_row(unsigned long long desc, int k) {
+  return (int)((desc >> (8 * k)) & 0xff);
+}
+__device__ __forceinline__ int mv_row(const MvDesc6& desc, int k) {
+  return desc.r[k];
 }
 
 // descriptor of sum r of pass P: six row indices (row 0 is all ones)
-__device__ inline unsigned long long mv_desc(const MvPass& P, int r) {
+template <typename D>
+__device__ inline D mv_desc(const MvPass& P, int r) {
   int f = 0;
   while (r >= P.base[f + 1]) ++f;
   const int loc = r - P.base[f];
@@ -179,55 +242,55 @@ __device__ inline unsigned long long mv_desc(const MvPass& P, int r) {
   switch (P.kind[f]) {
     case F_XX:
       mv_tri_decode(loc, c, i, j);
-      return mv_pack(R.X(i), R.X(j));
+      return mv_pack<D>(R.X(i), R.X(j));
     case F_Q:
       l = loc / mv_tri(c);
       mv_tri_decode(loc % mv_tri(c), c, i, j);
-      return mv_pack(t, R.X(i), R.X(j), R.W(l));
+      return mv_pack<D>(t, R.X(i), R.X(j), R.W(l));
     case F_XWZ:
       l = loc / c;
       i = loc % c;
-      return mv_pack(R.X(i), R.W(l), R.Z(l));
+      return mv_pack<D>(R.X(i), R.W(l), R.Z(l));
     case F_QUAD:
-      return mv_pack(R.Z(loc), R.Z(loc), R.W(loc));
+      return mv_pack<D>(R.Z(loc), R.Z(loc), R.W(loc));
     case F_R3:
-      return mv_pack(R.R3(loc));
+      return mv_pack<D>(R.R3(loc));
     case F_W:
-      return mv_pack(t, R.W(loc));
+      return mv_pack<D>(t, R.W(loc));
     case F_S1:
       l = loc / c;
       i = loc % c;
-      return mv_pack(R.R5(l), R.X(i));
+      return mv_pack<D>(R.R5(l), R.X(i));
     case F_GG:
       mv_tri_decode(loc, d, l, m);
-      return mv_pack(t, R.R4(l), R.R4(m));
+      return mv_pack<D>(t, R.R4(l), R.R4(m));
     case F_ZZ:
       mv_tri_decode(loc, d, l, m);
-      return mv_pack(t, R.Z(l), R.Z(m));
+      return mv_pack<D>(t, R.Z(l), R.Z(m));
     case F_WWH:
-      return mv_pack(t, R.W(loc), R.W(loc), R.R3(loc));
+      return mv_pack<D>(t, R.W(loc), R.W(loc), R.R3(loc));
     case F_WW:
       mv_tri_decode(loc, d, l, m);
-      return mv_pack(t, R.W(l), R.W(m));
+      return mv_pack<D>(t, R.W(l), R.W(m));
     case F_N:
       mv_tri_decode(loc / mv_tri(c), d, l, m);
       mv_tri_decode(loc % mv_tri(c), c, i, j);
-      return mv_pack(t, R.X(i), R.X(j), R.W(l), R.W(m));
+      return mv_pack<D>(t, R.X(i), R.X(j), R.W(l), R.W(m));
     case F_K:
       l = loc / mv_tri(d);
       mv_tri_decode(loc % mv_tri(d), d, m, q);
-      return mv_pack(t, R.W(l), R.Z(m), R.Z(q));
+      return mv_pack<D>(t, R.W(l), R.Z(m), R.Z(q));
     case F_F:
       l = loc / (d * c);
       m = (loc / c) % d;
       i = loc % c;
-      return mv_pack(t, R.X(i), R.W(l), R.Z(m));
+      return mv_pack<D>(t, R.X(i), R.W(l), R.Z(m));
     case F_MTR:
       l = loc / d;
       m = loc % d;
-      return mv_pack(t, R.W(l), R.W(l), R.R3(l), R.W(m));
+      return mv_pack<D>(t, R.W(l), R.W(l), R.R3(l), R.W(m));
   }
-  return 0;
+  return mv_pack<D>(0);
 }
 
 // accessors into a pass's accumulator
@@ -263,19 +326,80 @@ struct MvLane {
 };
 
 // per-lane small matrices, row-major, compact (d×d at stride d)
+template <int MD, int MC>
 struct MvState {
-  double Vg[MV_MAX_D * MV_MAX_D], Ve[MV_MAX_D * MV_MAX_D];
-  double D[MV_MAX_D];
-  double A[MV_MAX_D * MV_MAX_D];    // UltVehi
-  double Uh[MV_MAX_D * MV_MAX_D];   // UltVeh
-  double Ul[MV_MAX_D * MV_MAX_D];   // eigenvectors of Ve^-1/2 Vg Ve^-1/2
-  double Qi[MV_MAX_D * MV_MAX_C * MV_MAX_C];  // d inverse Gram blocks
-  double beta[MV_MAX_D * MV_MAX_C];  // GLS coefficients, whitened (d, c)
-  double Bc[MV_MAX_D * MV_MAX_C];    // ML: the carried UltVehiB (d, c)
-  double Bn[MV_MAX_D * MV_MAX_C];    // ML: this iteration's UltVehiB
+  double Vg[MD * MD], Ve[MD * MD];
+  double D[MD];
+  double A[MD * MD];    // UltVehi
+  double Uh[MD * MD];   // UltVeh
+  double Ul[MD * MD];   // eigenvectors of Ve^-1/2 Vg Ve^-1/2
+  double Qi[MD * MC * MC];  // d inverse Gram blocks
+  double beta[MD * MC];  // GLS coefficients, whitened (d, c)
+  double Bc[MD * MC];    // ML: the carried UltVehiB (d, c)
+  double Bn[MD * MC];    // ML: this iteration's UltVehiB
   double logdet_Ve, logl;
   int flag;
 };
+
+// the run-time-sized form: the same matrices in the lane's scratch (the
+// state itself, pointers and scalars, stays in shared memory)
+template <>
+struct MvState<0, 0> {
+  double *Vg, *Ve, *D, *A, *Uh, *Ul, *Qi, *beta, *Bc, *Bn;
+  double logdet_Ve, logl;
+  int flag;
+};
+
+// doubles of a run-time-sized state's matrices
+__host__ __device__ inline long mv_state_len(int d, int c) {
+  return 5L * d * d + d + (long)d * c * c + 3L * d * c;
+}
+
+// points the run-time-sized state into `w` (thread 0, before a barrier);
+// returns the first double after it.  The fixed state needs nothing.
+template <int MD, int MC>
+__device__ inline double* mv_state_bind(MvState<MD, MC>& s, double* w, int d,
+                                        int c) {
+  if constexpr (MD == 0) {
+    const long dd = (long)d * d, dc = (long)d * c;
+    s.Vg = w;
+    s.Ve = s.Vg + dd;
+    s.A = s.Ve + dd;
+    s.Uh = s.A + dd;
+    s.Ul = s.Uh + dd;
+    s.D = s.Ul + dd;
+    s.Qi = s.D + d;
+    s.beta = s.Qi + dc * c;
+    s.Bc = s.beta + dc;
+    s.Bn = s.Bc + dc;
+    return s.Bn + dc;
+  }
+  return w;
+}
+
+// doubles of thread 0's frame in the run-time-sized form: the deepest
+// chain of temporaries of the lane code (EigenProc and its eigh; a c×c
+// inverse beside two c×c blocks) and of each kernel's own
+__host__ __device__ inline long mv_frame_len(int d, int c) {
+  const long dd = (long)d * d, cc = (long)c * c;
+  return 12 * dd + 4 * cc + 8L * d + 4L * c + (long)d * (d + 1) + 16;
+}
+
+// The staged rows: static shared memory in the fixed instantiation; in
+// the run-time-sized form dynamic shared memory or, where the launch gave
+// none, `w` in the lane's scratch.
+typedef double (*MvSt)[MV_CH];
+
+template <int MD, int MC>
+__device__ __forceinline__ MvSt mv_st(double* w) {
+  if constexpr (MD > 0) {
+    __shared__ double st[MV_NROW][MV_CH];
+    return st;
+  } else {
+    extern __shared__ __align__(16) double mv_dyn_st[];
+    return reinterpret_cast<MvSt>(w != nullptr ? w : mv_dyn_st);
+  }
+}
 
 // what a pass stages in its five d-rows
 enum {
@@ -286,8 +410,8 @@ enum {
   STAGE_E     // E = e0 - Bn x
 };
 
-template <typename T>
-__device__ inline void mv_stage(const MvLane<T>& L, const MvState& s,
+template <typename T, int MD, int MC>
+__device__ inline void mv_stage(const MvLane<T>& L, const MvState<MD, MC>& s,
                                 int mode, int k, int col,
                                 double (*st)[MV_CH]) {
   const int d = L.d, c = L.c, n = L.n;
@@ -296,11 +420,18 @@ __device__ inline void mv_stage(const MvLane<T>& L, const MvState& s,
   st[0][col] = 1.0;
   st[1][col] = dl;
   st[2][col] = dl * dl;
-  double x[MV_MAX_C];
+  // the design rows: cached in a local array, or (run-time-sized form)
+  // read back from their staged rows
+  double xb[MC > 0 ? MC : 1];
   for (int i = 0; i < c; ++i) {
-    x[i] = L.x(i, k);
-    st[R.X(i)][col] = x[i];
+    const double v = L.x(i, k);
+    if constexpr (MC > 0) xb[i] = v;
+    st[R.X(i)][col] = v;
   }
+  auto x = [&](int i) -> double {
+    if constexpr (MC > 0) return xb[i];
+    else return st[R.X(i)][col];
+  };
   if (mode == STAGE_X) return;
   for (int l = 0; l < d; ++l) {
     const double v = s.D[l] * dl + 1.0;
@@ -313,28 +444,28 @@ __device__ inline void mv_stage(const MvLane<T>& L, const MvState& s,
       st[R.R3(l)][col] = log(v);
       if (mode == STAGE_ML) {
         double bx = 0.0;
-        for (int i = 0; i < c; ++i) bx += s.Bc[l * c + i] * x[i];
+        for (int i = 0; i < c; ++i) bx += s.Bc[l * c + i] * x(i);
         const double g = w * (z - bx);
         st[R.R4(l)][col] = g;
         st[R.R5(l)][col] = z - dl * s.D[l] * g;
       }
     } else if (mode == STAGE_PY) {
       double bx = 0.0;
-      for (int i = 0; i < c; ++i) bx += s.beta[l * c + i] * x[i];
+      for (int i = 0; i < c; ++i) bx += s.beta[l * c + i] * x(i);
       st[R.Z(l)][col] = w * (z - bx);
       const double* Qi = s.Qi + l * c * c;
       double h = 0.0;
       for (int i = 0; i < c; ++i) {
         double qx = 0.0;
-        for (int j = 0; j < c; ++j) qx += Qi[i * c + j] * x[j];
-        h += x[i] * qx;
+        for (int j = 0; j < c; ++j) qx += Qi[i * c + j] * x(j);
+        h += x(i) * qx;
       }
       st[R.R3(l)][col] = h;
     } else {  // STAGE_E
       double bx = 0.0, bn = 0.0;
       for (int i = 0; i < c; ++i) {
-        bx += s.Bc[l * c + i] * x[i];
-        bn += s.Bn[l * c + i] * x[i];
+        bx += s.Bc[l * c + i] * x(i);
+        bn += s.Bn[l * c + i] * x(i);
       }
       const double g = w * (z - bx);
       st[R.Z(l)][col] = (z - dl * s.D[l] * g) - bn;
@@ -343,19 +474,21 @@ __device__ inline void mv_stage(const MvLane<T>& L, const MvState& s,
 }
 
 // one pass: acc[r] = Σ_k Π (the six rows of sum r), every sum of P
-template <typename T>
-__device__ void mv_accumulate(const MvLane<T>& L, const MvState& s, int mode,
-                              const MvPass& P, double (*st)[MV_CH],
+template <typename T, int MD, int MC>
+__device__ void mv_accumulate(const MvLane<T>& L, const MvState<MD, MC>& s,
+                              int mode, const MvPass& P, double (*st)[MV_CH],
                               double* acc) {
+  using Desc = typename std::conditional<MD == 0, MvDesc6,
+                                         unsigned long long>::type;
   const int tid = threadIdx.x;
   const int total = mv_pass_size(P);
   for (int r0 = 0; r0 < total; r0 += MV_THREADS * MV_Q) {
-    unsigned long long desc[MV_Q];
+    Desc desc[MV_Q];
     double sum[MV_Q];
 #pragma unroll
     for (int q = 0; q < MV_Q; ++q) {
       const int r = r0 + q * MV_THREADS + tid;
-      desc[q] = r < total ? mv_desc(P, r) : 0ull;
+      desc[q] = r < total ? mv_desc<Desc>(P, r) : mv_pack<Desc>(0);
       sum[q] = 0.0;
     }
     for (int k0 = 0; k0 < L.n; k0 += MV_CH) {
@@ -366,12 +499,12 @@ __device__ void mv_accumulate(const MvLane<T>& L, const MvState& s, int mode,
 #pragma unroll
       for (int q = 0; q < MV_Q; ++q) {
         if (r0 + q * MV_THREADS + tid >= total) continue;
-        const double* f0 = st[desc[q] & 0xff];
-        const double* f1 = st[(desc[q] >> 8) & 0xff];
-        const double* f2 = st[(desc[q] >> 16) & 0xff];
-        const double* f3 = st[(desc[q] >> 24) & 0xff];
-        const double* f4 = st[(desc[q] >> 32) & 0xff];
-        const double* f5 = st[(desc[q] >> 40) & 0xff];
+        const double* f0 = st[mv_row(desc[q], 0)];
+        const double* f1 = st[mv_row(desc[q], 1)];
+        const double* f2 = st[mv_row(desc[q], 2)];
+        const double* f3 = st[mv_row(desc[q], 3)];
+        const double* f4 = st[mv_row(desc[q], 4)];
+        const double* f5 = st[mv_row(desc[q], 5)];
         double a = sum[q];
         for (int k = 0; k < kn; ++k)
           a += f0[k] * f1[k] * f2[k] * f3[k] * f4[k] * f5[k];
@@ -422,8 +555,9 @@ __device__ inline void mv_eigh2(const double* M, double* w, double* V) {
 // eigenvalues ascending and each eigenvector signed to agree with prev (a
 // non-negative dot product) or, without it, with its largest-magnitude
 // component positive.  M is overwritten.
+template <int MD>
 __device__ inline void mv_eigh(int d, double* M, double* w, double* V,
-                               const double* prev) {
+                               const double* prev, double* fr) {
   if (d == 2) {
     mv_eigh2(M, w, V);
     return;
@@ -464,7 +598,8 @@ __device__ inline void mv_eigh(int d, double* M, double* w, double* V,
     }
   }
   // ascending, stable
-  int ord[MV_MAX_D];
+  MvTmp<int, MD> tord;
+  int* ord = tord.take(fr, d);
   for (int i = 0; i < d; ++i) ord[i] = i;
   for (int i = 1; i < d; ++i) {
     const int o = ord[i];
@@ -475,7 +610,8 @@ __device__ inline void mv_eigh(int d, double* M, double* w, double* V,
     }
     ord[j] = o;
   }
-  double Vs[MV_MAX_D * MV_MAX_D];
+  MvTmp<double, MD * MD> tVs;
+  double* Vs = tVs.take(fr, d * d);
   for (int j = 0; j < d; ++j) {
     w[j] = M[ord[j] * d + ord[j]];
     for (int i = 0; i < d; ++i) Vs[i * d + j] = V[i * d + ord[j]];
@@ -498,13 +634,19 @@ __device__ inline void mv_eigh(int d, double* M, double* w, double* V,
 
 // EigenProc (mvlmm_core.py:106-128) into s: D, Uh = Ul'Veh, A = Ul'Vehi,
 // Ul, logdet_Ve; Ul's signs follow prev where given
+template <int MD, int MC>
 __device__ inline void mv_eigen_proc(int d, const double* Vg,
-                                     const double* Ve, MvState& s,
-                                     const double* prev) {
-  double M[MV_MAX_D * MV_MAX_D], ev[MV_MAX_D], Uv[MV_MAX_D * MV_MAX_D];
+                                     const double* Ve, MvState<MD, MC>& s,
+                                     const double* prev, double* fr) {
+  MvTmp<double, MD * MD> tM, tUv, tVeh, tVehi, tT;
+  MvTmp<double, MD> tev, tsq, tisq;
+  double* M = tM.take(fr, d * d);
+  double* ev = tev.take(fr, d);
+  double* Uv = tUv.take(fr, d * d);
   for (int i = 0; i < d * d; ++i) M[i] = Ve[i];
-  mv_eigh(d, M, ev, Uv, nullptr);
-  double sq[MV_MAX_D], isq[MV_MAX_D];
+  mv_eigh<MD>(d, M, ev, Uv, nullptr, fr);
+  double* sq = tsq.take(fr, d);
+  double* isq = tisq.take(fr, d);
   double ld = 0.0;
   for (int k = 0; k < d; ++k) {
     const bool pos = ev[k] > 0.0;
@@ -514,7 +656,8 @@ __device__ inline void mv_eigen_proc(int d, const double* Vg,
     if (pos) ld += log(ev[k]);
   }
   s.logdet_Ve = ld;
-  double Veh[MV_MAX_D * MV_MAX_D], Vehi[MV_MAX_D * MV_MAX_D];
+  double* Veh = tVeh.take(fr, d * d);
+  double* Vehi = tVehi.take(fr, d * d);
   for (int i = 0; i < d; ++i)
     for (int j = 0; j < d; ++j) {
       double a = 0.0, b = 0.0;
@@ -525,7 +668,7 @@ __device__ inline void mv_eigen_proc(int d, const double* Vg,
       Veh[i * d + j] = a;
       Vehi[i * d + j] = b;
     }
-  double T[MV_MAX_D * MV_MAX_D];
+  double* T = tT.take(fr, d * d);
   for (int i = 0; i < d; ++i)
     for (int j = 0; j < d; ++j) {
       double a = 0.0;
@@ -538,7 +681,7 @@ __device__ inline void mv_eigen_proc(int d, const double* Vg,
       for (int k = 0; k < d; ++k) a += T[i * d + k] * Vehi[k * d + j];
       M[i * d + j] = a;
     }
-  mv_eigh(d, M, s.D, s.Ul, prev);
+  mv_eigh<MD>(d, M, s.D, s.Ul, prev, fr);
   for (int l = 0; l < d; ++l)
     if (s.D[l] < 0.0) s.D[l] = 0.0;
   for (int l = 0; l < d; ++l)
@@ -555,8 +698,9 @@ __device__ inline void mv_eigen_proc(int d, const double* Vg,
 
 // inverse and log|det| of a c×c matrix: the adjugate at c <= 2 (as the
 // reference), Gauss-Jordan with partial pivoting above
+template <int MC>
 __device__ inline void mv_inv_logdet(int c, const double* M, double* Mi,
-                                     double& logdet) {
+                                     double& logdet, double* fr) {
   if (c == 1) {
     Mi[0] = 1.0 / M[0];
     logdet = log(fabs(M[0]));
@@ -572,7 +716,8 @@ __device__ inline void mv_inv_logdet(int c, const double* M, double* Mi,
     logdet = log(fabs(det));
     return;
   }
-  double W[MV_MAX_C * MV_MAX_C];
+  MvTmp<double, MC * MC> tW;
+  double* W = tW.take(fr, c * c);
   for (int i = 0; i < c * c; ++i) {
     W[i] = M[i];
     Mi[i] = 0.0;
@@ -646,16 +791,18 @@ __device__ inline void mv_invert(int n, double* M, double* Mi) {
 }
 
 // the Gram blocks of a core pass → s.Qi, s.beta; returns Σ log|Q_l|
+template <int MD, int MC>
 __device__ inline double mv_gls(const double* acc, const MvPass& P,
-                                MvState& s) {
+                                MvState<MD, MC>& s, double* fr) {
   const int d = P.d, c = P.c;
   double ldq = 0.0;
+  MvTmp<double, MC * MC> tQ;
+  double* Q = tQ.take(fr, c * c);
   for (int l = 0; l < d; ++l) {
-    double Q[MV_MAX_C * MV_MAX_C];
     for (int i = 0; i < c; ++i)
       for (int j = 0; j < c; ++j) Q[i * c + j] = mv_q(acc, P, FC_Q, l, i, j);
     double ld;
-    mv_inv_logdet(c, Q, s.Qi + l * c * c, ld);
+    mv_inv_logdet<MC>(c, Q, s.Qi + l * c * c, ld, fr);
     ldq += ld;
     for (int i = 0; i < c; ++i) {
       double b = 0.0;
@@ -668,8 +815,10 @@ __device__ inline double mv_gls(const double* acc, const MvPass& P,
 }
 
 // the (restricted) log-likelihood from a core pass and mv_gls's output
+template <int MD, int MC>
 __device__ inline double mv_logl(const double* acc, const MvPass& P,
-                                 const MvState& s, double ldq, int reml,
+                                 const MvState<MD, MC>& s, double ldq,
+                                 int reml,
                                  double logl_const, int n) {
   const int d = P.d, c = P.c;
   double quad = 0.0, logd = 0.0, qQq = 0.0;
@@ -686,13 +835,18 @@ __device__ inline double mv_logl(const double* acc, const MvPass& P,
 
 // the REML constant -(n-c)d/2 log 2π + d/2 log|XX'| (or the ML one), and
 // (XX')^-1 where Xi is given; thread 0 after an F_XX pass
+template <int MC>
 __device__ inline double mv_logl_const(const double* acc, const MvPass& P,
-                                       int reml, int n, double* Xi) {
+                                       int reml, int n, double* Xi,
+                                       double* fr) {
   const int d = P.d, c = P.c;
-  double M[MV_MAX_C * MV_MAX_C], Mi[MV_MAX_C * MV_MAX_C], ld;
+  MvTmp<double, MC * MC> tM, tMi;
+  double* M = tM.take(fr, c * c);
+  double* Mi = tMi.take(fr, c * c);
+  double ld;
   for (int i = 0; i < c; ++i)
     for (int j = 0; j < c; ++j) M[i * c + j] = acc[mv_ti(i, j, c)];
-  mv_inv_logdet(c, M, Xi != nullptr ? Xi : Mi, ld);
+  mv_inv_logdet<MC>(c, M, Xi != nullptr ? Xi : Mi, ld, fr);
   if (reml) return -0.5 * (n - c) * d * MV_LOG_2PI + 0.5 * d * ld;
   return -0.5 * n * d * MV_LOG_2PI;
 }

@@ -11,6 +11,6 @@
 // waits on it), with the score statistic f = n p_xy²/(p_yy p_xx).
 #include "test_tail.cuh"
 
-GT_TEST_TAIL_ENTRY(score_tail_launch, float, true)
-GT_TEST_TAIL_ENTRY(score_tail_f64_launch, double, true)
+GT_TEST_TAIL_ENTRY(score_tail, float, true)
+GT_TEST_TAIL_ENTRY(score_tail_f64, double, true)
 GT_ERROR_FN(score_tail)

@@ -10,6 +10,6 @@
 // bound are in test_tail.cuh, which K5 shares.
 #include "test_tail.cuh"
 
-GT_TEST_TAIL_ENTRY(wald_tail_launch, float, false)
-GT_TEST_TAIL_ENTRY(wald_tail_f64_launch, double, false)
+GT_TEST_TAIL_ENTRY(wald_tail, float, false)
+GT_TEST_TAIL_ENTRY(wald_tail_f64, double, false)
 GT_ERROR_FN(wald_tail)

@@ -44,10 +44,13 @@ REPO_ROOT = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "gemma_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# largest covariate count K2-K8 take (GT_WIDE_CVT in csrc/common.cuh; up
-# to GT_MAX_CVT = 16 they launch their first instantiation, above it the
-# second)
-MAX_CVT = 32
+# the share of the card's free memory that the scratch of one split
+# launch may take (launch_lanes)
+SCRATCH_SHARE = 0.25
+# bytes that the scratch of one split launch may take; None: SCRATCH_SHARE
+# of the card's free memory at the launch.  chip_smoke.py sets a few
+# lanes' worth to hold a forced split against one unsplit call
+scratch_budget: int | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,8 +79,11 @@ class Kernel:
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
+        # launches beyond the first that a lane split added (launch_lanes)
+        self.splits = 0
         self._fn = None
         self._err = None
+        self._lib = None
 
     def library_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -110,7 +116,7 @@ class Kernel:
         return lib
 
     def _load(self):
-        lib = ctypes.CDLL(self.build())
+        lib = self._lib = ctypes.CDLL(self.build())
         fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = list(self.argtypes) + [_P]     # ..., stream
         fn.restype = ctypes.c_int
@@ -130,6 +136,54 @@ class Kernel:
                                f"{self._err(rc).decode()}")
         self.launches += 1
 
+    def lane_bytes(self, *args: int) -> int:
+        """Bytes of scratch a lane of this kernel needs at these sizes
+        (its C function `<name>_lane_bytes`); 0 where the kernel runs a
+        fixed instantiation without scratch."""
+        if self._fn is None:
+            self._load()
+        fn = getattr(self._lib, f"{self.name}_lane_bytes")
+        fn.argtypes = [_I] * len(args)
+        fn.restype = ctypes.c_long
+        return int(fn(*args))
+
+    def launch_lanes(self, device: torch.device, S: int, lane_bytes: int,
+                     args) -> None:
+        """Launch over S lanes.  `args(s0, count, scratch)` gives the
+        launch's arguments for lanes [s0, s0 + count) and the address of
+        a scratch of lane_bytes a lane.  Without scratch one launch takes
+        every lane; with it the lanes are split into launches whose scratch
+        fits `scratch_budget` bytes (by default SCRATCH_SHARE of the
+        card's free memory), one scratch reused by all.  Lanes are
+        independent, so the split changes no lane's result."""
+        if not lane_bytes or not S:
+            self.launch(device, *args(0, S, None))
+            return
+        budget = scratch_budget or int(
+            torch.cuda.mem_get_info(device)[0] * SCRATCH_SHARE)
+        per = min(S, max(1, budget // lane_bytes))
+        scratch = torch.empty(lane_bytes * per, dtype=torch.uint8,
+                              device=device)
+        self.splits += run_lanes(S, lane_bytes, budget, lambda a, b:
+                                 self.launch(device, *args(
+                                     a, b - a, scratch.data_ptr()))) - 1
+
+
+def lane_ranges(S: int, lane_bytes: int, budget: int) -> list:
+    """[a, b) ranges that cover lanes 0..S once, in order, each of at
+    most max(1, budget // lane_bytes) lanes."""
+    per = max(1, budget // lane_bytes)
+    return [(a, min(a + per, S)) for a in range(0, S, per)]
+
+
+def run_lanes(S: int, lane_bytes: int, budget: int, fn) -> int:
+    """Call fn(a, b) on each of lane_ranges(S, lane_bytes, budget);
+    returns the number of calls."""
+    ranges = lane_ranges(S, lane_bytes, budget)
+    for a, b in ranges:
+        fn(a, b)
+    return len(ranges)
+
 
 _PROLOGUE_ARGS = (_P, _I, _I, _I, _I, _I, _I, _I, _P)
 _PROLOGUE_REPLACES = (
@@ -138,14 +192,18 @@ _PROLOGUE_REPLACES = (
 GENO_PROLOGUE = Kernel("geno_prologue", _PROLOGUE_ARGS, _PROLOGUE_REPLACES)
 GENO_PROLOGUE_F64 = Kernel("geno_prologue_f64", _PROLOGUE_ARGS,
                            _PROLOGUE_REPLACES, source="geno_prologue")
+# K2-K7 end in (s0, count, scratch): the lanes of the launch and, above
+# 32 covariates (GT_DYN), their scratch (launch_lanes); K8 ends in its
+# scratch
+_LANES = (_I, _I, _P)
 LAMBDA_GRID = Kernel(
     "lambda_grid",
-    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P) + _LANES,
     "gemma_tpu/models/lmm/likelihood.py:380 dev1_grid (recurrence epilogue)")
 LAMBDA_SOLVE = Kernel(
     "lambda_solve",
     (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     _I, _I, _D, _D, _D, _I, _D, _P, _P),
+     _I, _I, _D, _D, _D, _I, _D, _P, _P) + _LANES,
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float32 bracket/"
     "Newton loop :307-434, _newton_batched :186, dev12 likelihood.py:441, "
     "logf_stable likelihood.py:269)")
@@ -153,7 +211,7 @@ LAMBDA_SOLVE = Kernel(
 # (or (S,), one null λ per lane); then the lanes' strides of λ, UtWy,
 # wy_prod and Utx (0 = shared)
 _TAIL_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-              _I, _P, _P, _P)
+              _I, _P, _P, _P) + _LANES
 _WALD_REPLACES = ("gemma_tpu/models/lmm/likelihood.py:488 wald_stats + "
                   "gemma_tpu/ops/stats.py:21 f_sf")
 _SCORE_REPLACES = ("gemma_tpu/models/lmm/likelihood.py:519 score_stats + "
@@ -166,17 +224,19 @@ SCORE_TAIL_F64 = Kernel("score_tail_f64", _TAIL_ARGS, _SCORE_REPLACES,
                         source="score_tail")
 LRT_TAIL = Kernel(
     "lrt_tail",
-    (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _P, _I, _P, _P),
+    (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _P, _I, _P, _P)
+    + _LANES,
     "gemma_tpu/ops/stats.py:46 chisq_sf + gemma_tpu/models/lmm/engine.py:163 "
     "(the LRT difference)")
 LAMBDA_SOLVE_F64 = Kernel(
     "lambda_solve_f64",
     (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-     _D, _D, _D, _D, _I, _I, _D, _P, _P),
+     _D, _D, _D, _D, _I, _I, _D, _P, _P) + _LANES,
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float64 branch: "
     "per-point dev1 scan :300-302, _brent_batched :66, _newton_batched "
     ":186, logf likelihood.py:237)")
-_LM_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P)
+_LM_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+            _P)
 _LM_REPLACES = ("gemma_tpu/models/lm.py:38 lm_block + :68 lm_gene_block "
                 "(with gemma_tpu/ops/stats.py:21 f_sf, :46 chisq_sf)")
 LM_TAIL = Kernel("lm_tail", _LM_ARGS, _LM_REPLACES)
@@ -186,28 +246,27 @@ LM_TAIL_F64 = Kernel("lm_tail_f64", _LM_ARGS, _LM_REPLACES,
 # the mvLMM kernels K9-K11: the lane operands eval, X0 (c0, n), Y (d, n)
 # and R (S, r, n) in the operand type, starting values in float64 at a
 # lane stride (0 = shared), outputs float64
+# ...; then (s0, count, scratch): the lanes of the launch and the
+# run-time-sized form's scratch beyond d = 8 or 10 design rows (K11 and
+# K14 take scratch at every shape; launch_lanes)
 _EM_ARGS = (_I, _I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-            _P, _I, _P, _P, _P, _P, _P, _P)
+            _P, _I, _P, _P, _P, _P, _P, _P) + _LANES
 _EM_REPLACES = "gemma_tpu/models/mvlmm_core.py:225 mph_em"
 MPH_EM = Kernel("mph_em", _EM_ARGS, _EM_REPLACES)
 MPH_EM_F64 = Kernel("mph_em_f64", _EM_ARGS, _EM_REPLACES, source="mph_em")
 _P_ARGS = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
-           _P, _P, _P, _P)
+           _P, _P, _P, _P) + _LANES
 _P_REPLACES = ("gemma_tpu/models/mvlmm_core.py:712 mph_calc_p + "
                "gemma_tpu/ops/stats.py:46 chisq_sf")
 MPH_CALC_P = Kernel("mph_calc_p", _P_ARGS, _P_REPLACES)
 MPH_CALC_P_F64 = Kernel("mph_calc_p_f64", _P_ARGS, _P_REPLACES,
                         source="mph_calc_p")
 _NR_ARGS = (_I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-            _P, _P, _P, _P)
+            _P, _P, _P) + _LANES
 _NR_REPLACES = ("gemma_tpu/models/mvlmm_core.py:439 mph_nr (with "
                 "_nr_logl_fn :393, _is_pd :423)")
 MPH_NR = Kernel("mph_nr", _NR_ARGS, _NR_REPLACES)
 MPH_NR_F64 = Kernel("mph_nr_f64", _NR_ARGS, _NR_REPLACES, source="mph_nr")
-# largest phenotype count and design rows (covariates plus the lane's own
-# rows) K9-K11 take (MV_MAX_D, MV_MAX_C in csrc/mvlmm_lane.cuh)
-MAX_PH = 8
-MAX_MV_ROWS = 10
 
 # K12, the BSLMM chain: segment, shapes and settings, the seed, then the
 # operands, the state and the scratch (models/bslmm.py bslmm_chain_cuda)
@@ -219,8 +278,6 @@ _CHAIN_REPLACES = ("gemma_tpu/models/bslmm.py:121 make_mcmc_step "
 BSLMM_CHAIN = Kernel("bslmm_chain", _CHAIN_ARGS, _CHAIN_REPLACES)
 BSLMM_CHAIN_F64 = Kernel("bslmm_chain_f64", _CHAIN_ARGS, _CHAIN_REPLACES,
                          source="bslmm_chain")
-# largest s_max K12 takes (BS_MAX_S in csrc/bslmm_chain.cu)
-MAX_S_MAX = 1024
 # K13, the DAP Bayes-factor epilogue
 _BF_ARGS = (_P, _P, _P, _P, _P, _D, _I, _I, _I, _P)
 _BF_REPLACES = "gemma_tpu/models/bslmmdap.py:43 _bf_table"
@@ -228,9 +285,9 @@ DAP_BF = Kernel("dap_bf", _BF_ARGS, _BF_REPLACES)
 DAP_BF_F64 = Kernel("dap_bf_f64", _BF_ARGS, _BF_REPLACES, source="dap_bf")
 
 # K14, the mvLMM -crt factors (float64 operands; -crt runs in float64):
-# shapes, then eval, X0, R, Vg, Ve, Hvar, the scratch and the (3, S) output
+# shapes, then eval, X0, R, Vg, Ve, Hvar, the (3, S) output and the lanes
 CALC_CRT = Kernel(
-    "calc_crt", (_I,) * 5 + (_P,) * 8,
+    "calc_crt", (_I,) * 5 + (_P,) * 7 + _LANES,
     "gemma_tpu/models/mvlmm_core.py:681 calc_crt (_calc_crt_one :561; from "
     "gemma_tpu/models/mvlmm.py:322 _crt_block)")
 # K15, the pair column sums of -vc: ma, mb, n, same, A, B, the output's
@@ -277,6 +334,7 @@ def build_all() -> None:
 def reset_launches() -> None:
     for k in ALL:
         k.launches = 0
+        k.splits = 0
 
 
 def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -295,26 +353,20 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 
 def check_mvlmm_shape(d: int, c: int) -> None:
-    if not 2 <= d <= MAX_PH or not 1 <= c <= MAX_MV_ROWS:
-        raise ValueError(
-            f"the mvLMM kernels take 2..{MAX_PH} phenotypes and 1.."
-            f"{MAX_MV_ROWS} design rows (covariates plus the lane's own "
-            f"rows), got {d} and {c} (MV_MAX_D, MV_MAX_C in gemma_torch/"
-            "csrc/mvlmm_lane.cuh; ROADMAP.md records the bound)")
+    if d < 2 or c < 1:
+        raise ValueError(f"the mvLMM kernels take at least 2 phenotypes and "
+                         f"1 design row, got {d} and {c}")
 
 
 def check_bslmm_shape(s_max: int) -> None:
-    if not 1 <= s_max <= MAX_S_MAX:
-        raise ValueError(f"the BSLMM chain kernel takes s_max 1..{MAX_S_MAX}, "
-                         f"got {s_max} (BS_MAX_S in gemma_torch/csrc/"
-                         "bslmm_chain.cu; ROADMAP.md records the bound)")
+    if s_max < 1:
+        raise ValueError(f"the BSLMM chain kernel takes s_max >= 1, got "
+                         f"{s_max}")
 
 
 def check_n_cvt(n_cvt: int) -> None:
-    if not 0 <= n_cvt <= MAX_CVT:
-        raise ValueError(f"the kernels take 0..{MAX_CVT} covariates, got "
-                         f"{n_cvt} (GT_WIDE_CVT in gemma_torch/csrc/"
-                         "common.cuh; ROADMAP.md records the bound)")
+    if n_cvt < 0:
+        raise ValueError(f"the kernels take n_cvt >= 0, got {n_cvt}")
 
 
 @functools.lru_cache(maxsize=64)

@@ -506,10 +506,13 @@ def chain_config(ops: ChainOperands, st: BslmmSettings) -> torch.Tensor:
 
 
 def chain_scratch(n: int, s_max: int) -> int:
-    """float64 words of K12's scratch (BS_SCRATCH in bslmm_chain.cu):
+    """float64 words of K12's scratch (bslmm_chain_run in bslmm_chain.cu):
     two proposal slots (alpha, Utu, UtXb, beta), w_hi, two n-vectors of
-    the probit step, Omega and three s_max vectors."""
-    return 2 * (3 * n + s_max) + 3 * n + s_max * s_max + 3 * s_max
+    the probit step, Omega, three s_max vectors and the room for the three
+    s_max int rank lists, which the kernel keeps there only where they
+    outgrow its shared memory."""
+    return (2 * (3 * n + s_max) + 3 * n + s_max * s_max + 3 * s_max
+            + (3 * s_max + 1) // 2)
 
 
 def bslmm_chain_cuda(ops: ChainOperands, st: BslmmSettings,

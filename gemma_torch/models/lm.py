@@ -106,10 +106,13 @@ def lm_tail_cuda(rows, v, W, consts: LmConsts, gene: bool,
     kernels.check_operand(consts.WtWi_Wtv, "WtWi_Wtv", f64, (c,))
     kernels.check_operand(consts.vPwv, "vPwv", f64, (1,))
     out = torch.empty((5, S), dtype=dt, device=rows.device)
+    # above 32 covariates each row keeps its r'W in a scratch (c doubles)
+    scratch = torch.empty(S * kernels.LM_TAIL.lane_bytes(c), dtype=torch.uint8,
+                          device=rows.device)
     kern.launch(rows.device, rows.data_ptr(), v.data_ptr(), W.data_ptr(),
                 consts.WtWi.data_ptr(), consts.WtWi_Wtv.data_ptr(),
                 consts.vPwv.data_ptr(), S, n, c, int(gene), int(se_score),
-                *(out[i].data_ptr() for i in range(5)))
+                *(out[i].data_ptr() for i in range(5)), scratch.data_ptr())
     return LmStats(*out)
 
 

@@ -501,10 +501,12 @@ def grid_epilogue_cuda(gp: GridProducts, n: int, n_cvt: int,
     dev = gp.xx.device
     tab = kernels.pab_tables(n_cvt, str(dev))
     d1f = torch.empty((G, S), dtype=f32, device=dev)
-    kernels.LAMBDA_GRID.launch(
-        dev, gp.xcross.data_ptr(), gp.xx.data_ptr(), gp.shared.data_ptr(),
+    kern = kernels.LAMBDA_GRID
+    kern.launch_lanes(dev, S, kern.lane_bytes(n_cvt, G), lambda s0, k, w: (
+        gp.xcross.data_ptr(), gp.xx.data_ptr(), gp.shared.data_ptr(),
         gp.trace_hi.data_ptr(), gp.lam.data_ptr(), tab.data_ptr(), n_cvt, S,
-        G, M, n, int(calc_null), int(reml), int(wy_lane), d1f.data_ptr())
+        G, M, n, int(calc_null), int(reml), int(wy_lane), d1f.data_ptr(),
+        s0, k, w))
     return d1f
 
 
@@ -663,11 +665,12 @@ def _test_tail_cuda(k32, k64, lam, data: LmmBatchData, n_cvt: int):
     beta = torch.empty(S, dtype=dt, device=dev)
     se = torch.empty_like(beta)
     p = torch.empty_like(beta)
-    kern.launch(
-        dev, lam.data_ptr(), data.eval.data_ptr(), data.UtWy.data_ptr(),
+    kern.launch_lanes(dev, S, kern.lane_bytes(n_cvt), lambda s0, k, w: (
+        lam.data_ptr(), data.eval.data_ptr(), data.UtWy.data_ptr(),
         data.wy_prod.data_ptr(), data.Utx.data_ptr(), tab.data_ptr(), n_cvt,
         S, n, M, int(idx.xx), int(idx.xy), int(lam.numel() > 1),
-        *lane_strides(data), beta.data_ptr(), se.data_ptr(), p.data_ptr())
+        *lane_strides(data), beta.data_ptr(), se.data_ptr(), p.data_ptr(),
+        s0, k, w))
     return beta, se, p
 
 
@@ -764,6 +767,8 @@ def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
         c = logf_const(n, n_cvt, False, False)   # ML: no calc_null term
         ptrs = (data.eval.data_ptr(), data.UtWy.data_ptr(),
                 data.Utx.data_ptr())
+        kern = kernels.LRT_TAIL
+        lane_bytes = kern.lane_bytes(n_cvt)
         if l_mle_null is None:
             l0 = logl_H0.to(f64).reshape(-1).contiguous()
         else:
@@ -771,16 +776,18 @@ def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
             kernels.check_operand(lam0, "l_mle_null", dt)
             _one_or_lanes(lam0, "l_mle_null", S)
             l0 = torch.empty(lam0.numel(), dtype=f64, device=dev)
-            kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam0.data_ptr(),
-                                    *ptrs, n_cvt, lam0.numel(), n, 1,
-                                    ustride, xstride, c, None, None, 0,
-                                    l0.data_ptr(), None)
+            kern.launch_lanes(dev, lam0.numel(), lane_bytes,
+                              lambda s0, k, w: (
+                                  LRT_RECOMPUTE, lam0.data_ptr(), *ptrs,
+                                  n_cvt, lam0.numel(), n, 1, ustride,
+                                  xstride, c, None, None, 0, l0.data_ptr(),
+                                  None, s0, k, w))
         kernels.check_operand(l0, "logl_H0", f64)
         _one_or_lanes(l0, "logl_H0", S)
-        kernels.LRT_TAIL.launch(dev, LRT_RECOMPUTE, lam.data_ptr(), *ptrs,
-                                n_cvt, S, n, 0, ustride, xstride, c, None,
-                                l0.data_ptr(), int(l0.numel() > 1),
-                                l1.data_ptr(), p.data_ptr())
+        kern.launch_lanes(dev, S, lane_bytes, lambda s0, k, w: (
+            LRT_RECOMPUTE, lam.data_ptr(), *ptrs, n_cvt, S, n, 0, ustride,
+            xstride, c, None, l0.data_ptr(), int(l0.numel() > 1),
+            l1.data_ptr(), p.data_ptr(), s0, k, w))
     elif dt == f64:
         kernels.check_operand(logf_H1, "logf_H1", dt, (S,))
         l0 = logl_H0.reshape(-1).contiguous()
@@ -789,7 +796,7 @@ def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
         kernels.LRT_TAIL.launch(
             dev, LRT_TAIL_ONLY, None, None, None, None, n_cvt, S, n, 0, 0, 0,
             0.0, logf_H1.data_ptr(), l0.data_ptr(), int(l0.numel() > 1),
-            l1.data_ptr(), p.data_ptr())
+            l1.data_ptr(), p.data_ptr(), 0, S, None)
     else:
         raise TypeError(f"lrt_tail takes float32 or float64, got {dt}")
     return l1.to(dt), p.to(dt)

@@ -352,14 +352,16 @@ def lambda_solve_cuda(d1f, fine_np, data: lk.LmmBatchData, n_cvt: int,
     tab = kernels.pab_tables(n_cvt, str(dev))
     lam = torch.empty(S, dtype=f32, device=dev)
     logf = torch.empty_like(lam)
-    kernels.LAMBDA_SOLVE.launch(
-        dev, d1f.data_ptr(), fine.data_ptr(), n_region, _F32_GRID_REFINE,
+    kern = kernels.LAMBDA_SOLVE
+    kern.launch_lanes(dev, S, kern.lane_bytes(n_cvt, int(wide)),
+                      lambda s0, k, w: (
+        d1f.data_ptr(), fine.data_ptr(), n_region, _F32_GRID_REFINE,
         data.eval.data_ptr(), data.UtWy.data_ptr(), data.wy_prod.data_ptr(),
         data.Utx.data_ptr(), tab.data_ptr(), n_cvt, S, n, M, int(calc_null),
         int(reml), *lk.lane_strides(data), int(wide), float(l_min),
         float(l_max), _NEWTON_EPSREL if wide else _F32_NEWTON_EPSREL,
         _NEWTON_MAX_ITER, lk.logf_const(n, n_cvt, calc_null, reml),
-        lam.data_ptr(), logf.data_ptr())
+        lam.data_ptr(), logf.data_ptr(), s0, k, w))
     return LambdaResult(lam=lam, logf=logf)
 
 
@@ -405,14 +407,15 @@ def lambda_solve_f64_cuda(data: lk.LmmBatchData, n_cvt: int,
     tab = kernels.pab_tables(n_cvt, str(dev))
     lam = torch.empty(S, dtype=f64, device=dev)
     logf = torch.empty_like(lam)
-    kernels.LAMBDA_SOLVE_F64.launch(
-        dev, grid.data_ptr(), n_region, data.eval.data_ptr(),
+    kern = kernels.LAMBDA_SOLVE_F64
+    kern.launch_lanes(dev, S, kern.lane_bytes(n_cvt), lambda s0, k, w: (
+        grid.data_ptr(), n_region, data.eval.data_ptr(),
         data.UtWy.data_ptr(), data.wy_prod.data_ptr(), data.Utx.data_ptr(),
         data.iab_logdiag.data_ptr(), tab.data_ptr(), n_cvt, S, n, M,
         int(calc_null), int(reml), *lk.lane_strides(data), float(l_min),
         float(l_max), _BRENT_EPSREL, _NEWTON_EPSREL, _BRENT_MAX_ITER,
         _NEWTON_MAX_ITER, lk.logf_const(n, n_cvt, calc_null, reml),
-        lam.data_ptr(), logf.data_ptr())
+        lam.data_ptr(), logf.data_ptr(), s0, k, w))
     return LambdaResult(lam=lam, logf=logf)
 
 

@@ -473,12 +473,12 @@ def mph_em_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     done = torch.empty(S, dtype=torch.int32, device=dev)
     iters = torch.empty(S, dtype=torch.int32, device=dev)
     if S:
-        kern.launch(dev, int(reml), int(staged), int(max_iter), float(prec),
-                    S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(),
-                    Y.data_ptr(), R.data_ptr(), Vg0.data_ptr(),
-                    Ve0.data_ptr(), vs, B0.data_ptr(), bs, Vg.data_ptr(),
-                    Ve.data_ptr(), B.data_ptr(), logl.data_ptr(),
-                    done.data_ptr(), iters.data_ptr())
+        kern.launch_lanes(dev, S, kern.lane_bytes(d, c), lambda s0, k, w: (
+            int(reml), int(staged), int(max_iter), float(prec), S, n, d, c0,
+            r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(), R.data_ptr(),
+            Vg0.data_ptr(), Ve0.data_ptr(), vs, B0.data_ptr(), bs,
+            Vg.data_ptr(), Ve.data_ptr(), B.data_ptr(), logl.data_ptr(),
+            done.data_ptr(), iters.data_ptr(), s0, k, w))
     return EmResult(Vg, Ve, B, logl, done.bool(), iters)
 
 
@@ -560,11 +560,12 @@ def mph_calc_p_cuda(eval_, X0, Y, R, Vg, Ve, logl1=None,
         p_lrt = torch.empty_like(stat)
         l1, l0 = logl1.data_ptr(), logl0.data_ptr()
     if S:
-        kern.launch(dev, S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(),
-                    Y.data_ptr(), R.data_ptr(), Vg.data_ptr(), Ve.data_ptr(),
-                    vs, l1, l0, l0s, stat.data_ptr(), p.data_ptr(),
-                    beta.data_ptr(), Vbeta.data_ptr(),
-                    0 if p_lrt is None else p_lrt.data_ptr())
+        kern.launch_lanes(dev, S, kern.lane_bytes(d, c0 + r),
+                          lambda s0, k, w: (
+            S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(),
+            R.data_ptr(), Vg.data_ptr(), Ve.data_ptr(), vs, l1, l0, l0s,
+            stat.data_ptr(), p.data_ptr(), beta.data_ptr(), Vbeta.data_ptr(),
+            0 if p_lrt is None else p_lrt.data_ptr(), s0, k, w))
     return CalcP(stat, p, beta, Vbeta, p_lrt)
 
 
@@ -725,21 +726,11 @@ def mph_nr_plain(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     return Vg, Ve, logl, -Hinv
 
 
-def nr_scratch(d: int, c: int) -> int:
-    """float64 values of K11's per-lane scratch, as mv_nr_scratch in
-    csrc/mph_nr.cu lays it out: the REML passes' sums (the core families,
-    then pass A's WW, W, N and pass B's ZZ, K, F, MTR, WWH), the Hessian
-    and its inverse, A S_a A', the trace tables and the f vectors."""
-    tc, td, p2 = c * (c + 1) // 2, d * (d + 1) // 2, d * (d + 1)
-    pass_a = (d * tc + d * c + 2 * d) + 3 * td + 2 * d + 2 * td * tc
-    pass_b = 2 * td + 3 * d * td + 2 * d * d * c + 3 * d * d + 2 * d
-    return pass_a + pass_b + 2 * p2 * p2 + td * d * d + 4 * d * d + p2 * d * c
-
-
 def mph_nr_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
                 Vg0, Ve0):
     """K11 on the card (float64 operands: its f64 instantiation).  Its
-    per-lane sums and Hessian live in a scratch the wrapper allocates."""
+    per-lane sums and Hessian live in a scratch the wrapper allocates, the
+    lanes split into launches whose scratch fits the budget."""
     dt = eval_.dtype
     S, n, d, c0, r = _check_lanes(eval_, X0, Y, R, dt)
     c = c0 + r
@@ -754,13 +745,12 @@ def mph_nr_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     Ve = torch.empty_like(Vg)
     logl = torch.empty(S, dtype=_F64, device=dev)
     Hvar = torch.empty((S, p2, p2), dtype=_F64, device=dev)
-    scratch = torch.empty(S * nr_scratch(d, c), dtype=_F64, device=dev)
     if S:
-        kern.launch(dev, int(reml), int(max_iter), float(prec), S, n, d, c0,
-                    r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(),
-                    R.data_ptr(), Vg0.data_ptr(), Ve0.data_ptr(), vs,
-                    scratch.data_ptr(), Vg.data_ptr(), Ve.data_ptr(),
-                    logl.data_ptr(), Hvar.data_ptr())
+        kern.launch_lanes(dev, S, kern.lane_bytes(d, c), lambda s0, k, w: (
+            int(reml), int(max_iter), float(prec), S, n, d, c0, r,
+            eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(), R.data_ptr(),
+            Vg0.data_ptr(), Ve0.data_ptr(), vs, Vg.data_ptr(), Ve.data_ptr(),
+            logl.data_ptr(), Hvar.data_ptr(), s0, k, w))
     return Vg, Ve, logl, Hvar
 
 
@@ -883,19 +873,10 @@ def calc_crt_plain(eval_, X0, R, Vg, Ve, Hvar):
     return tuple(out)
 
 
-def crt_scratch(d: int, c: int) -> int:
-    """float64 values of K14's per-lane scratch, as csrc/calc_crt.cu lays
-    it out: Qi (cd)², the sums SS_0, SS_1 (v d² each), T_0-T_2 (v² each),
-    L_0, L_1 (v d cd each), then C_0, C_1 (v d² each), Y_0, Y_1 (v cd d
-    each) and the six per-pair traces (v(v+1)/2 each)."""
-    vs, cd = d * (d + 1) // 2, c * d
-    return (cd * cd + 2 * vs * d * d + 3 * vs * vs + 2 * vs * d * cd
-            + 2 * vs * d * d + 2 * vs * cd * d + 6 * (vs * (vs + 1) // 2))
-
-
 def calc_crt_cuda(eval_, X0, R, Vg, Ve, Hvar):
     """K14 on the card, float64 operands (-crt runs in float64); its
-    per-lane sums live in a scratch the wrapper allocates."""
+    per-lane sums live in a scratch the wrapper allocates, the lanes split
+    into launches whose scratch fits the budget."""
     n = eval_.shape[0]
     c0, (S, r) = X0.shape[0], R.shape[:2]
     d = Vg.shape[-1]
@@ -912,12 +893,13 @@ def calc_crt_cuda(eval_, X0, R, Vg, Ve, Hvar):
     kernels.check_operand(Hvar, "Hvar", _F64, (S, p2, p2))
     dev = eval_.device
     out = torch.empty((3, S), dtype=_F64, device=dev)
-    scratch = torch.empty(S * crt_scratch(d, c0 + r), dtype=_F64, device=dev)
+    kern = kernels.CALC_CRT
     if S:
-        kernels.CALC_CRT.launch(dev, S, n, d, c0, r, eval_.data_ptr(),
-                                X0.data_ptr(), R.data_ptr(), Vg.data_ptr(),
-                                Ve.data_ptr(), Hvar.data_ptr(),
-                                scratch.data_ptr(), out.data_ptr())
+        kern.launch_lanes(dev, S, kern.lane_bytes(d, c0 + r),
+                          lambda s0, k, w: (
+            S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(), R.data_ptr(),
+            Vg.data_ptr(), Ve.data_ptr(), Hvar.data_ptr(), out.data_ptr(),
+            s0, k, w))
     return out[0], out[1], out[2]
 
 

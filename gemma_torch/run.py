@@ -26,7 +26,6 @@ import torch
 from gemma_torch import precision
 from gemma_torch.config import GemmaConfig, check_param
 from gemma_torch.dataset import Dataset, load_dataset
-from gemma_torch import kernels
 from gemma_torch.io.readers import (read_eigen_d, read_eigen_u,
                                     read_gene_expression, read_kinship,
                                     read_multi_kinship)
@@ -366,8 +365,6 @@ def run_lmm(cfg: GemmaConfig, log: RunLog | None = None,
         # GxE: each lane's covariates are [W, env, x] (lmm.cpp:2283-2431)
         env = torch.as_tensor(ds.gxe, dtype=dtype, device=device)
         Ut_env = U.T @ env
-        if device.type == "cuda":
-            kernels.check_n_cvt(n_cvt + 2)
         per_lane = _lane_rows(n_cvt + 3, 4)
     bs = _block_size(cfg, device, len(idx), n_axis=n, per_lane=per_lane)
     with log.timer.phase("opt"):
@@ -450,6 +447,11 @@ def _lmm_gene(cfg: GemmaConfig, log: RunLog, ds: Dataset, eval_, U, UtW,
 # ---------------------------------------------------------------------------
 # -lmm with several -n: multivariate LMM
 
+# the most traits the mvLMM reads as float32 operands in the speed mode
+# (scripts/mvlmm_traits_f32_gap.py: within 4.8e-6 of float64 up to 8)
+_MV_F32_MAX_D = 8
+
+
 def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
               device: str | torch.device = "cuda") -> dict:
     """Multivariate LMM association (-lmm 1/2/3/4/9 with more than one
@@ -459,10 +461,13 @@ def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
     as the reference: ROADMAP §C17) runs in float64 whatever -precision
     says: the -pnr refit stops at a 1e-3 logl tolerance and the
     correction amplifies where it stops, so float32 operands part its
-    p_lrt from float64 by up to 0.4 (ROADMAP §C18)."""
+    p_lrt from float64 by up to 0.4 (ROADMAP §C18).  So does the mvLMM
+    beyond _MV_F32_MAX_D traits: there the EMs from float32 operands
+    end elsewhere than from float64, p_lrt up to 0.047 apart at nine
+    traits (ROADMAP §C20)."""
     device = torch.device(device)
     dtype = precision.resolve_dtype(cfg.precision, device)
-    if cfg.crt and not cfg.file_gxe:
+    if (cfg.crt and not cfg.file_gxe) or cfg.n_ph > _MV_F32_MAX_D:
         dtype = torch.float64
     log = log or RunLog(argv=["gemma_torch"], device=device)
     with log.timer.phase("load"):
@@ -479,8 +484,6 @@ def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
             env = torch.as_tensor(ds.gxe, dtype=dtype, device=device)
             X0 = torch.cat([X0, (U.T @ env)[None]]).contiguous()
     rows = X0.shape[0] + (2 if ds.gxe is not None else 1)
-    if device.type == "cuda":
-        kernels.check_mvlmm_shape(d, rows)
 
     with log.timer.phase("null"):
         null = MvlmmNull(eval_, X0, Y, cfg)

@@ -116,4 +116,10 @@ class RunLog:
                   f"{t.minutes('utx'):.6g} min \n")
                 w(f"##      time on optimization = "
                   f"{t.minutes('opt'):.6g} min \n")
+            if a_mode in (71, 72):     # -calccor / -gw: the host's share
+                for name, what in (("load", "reading genotypes"),
+                                   ("opt", "calculating correlations"),
+                                   ("write", "writing correlations")):
+                    w(f"##      time on {what} = {t.minutes(name):.6g} "
+                      "min \n")
             w("##\n")

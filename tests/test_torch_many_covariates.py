@@ -1,10 +1,10 @@
-"""More than 16 covariates: K2-K8 take up to 32 on the card (their second
-instantiation above 16, GT_WIDE_CVT in gemma_torch/csrc/common.cuh), as
-the reference takes any number.  The port's CPU path (the kernels' plain
-versions) against the reference, float64, with an intercept plus 23
-seeded normal columns — a human GWAS's sex, age, batch and principal
-components: p-values within 1e-8, the other columns as in
-test_torch_cli.py.
+"""More than 16 covariates: K2-K8 take any number on the card (their
+second instantiation above 16, GT_WIDE_CVT in gemma_torch/csrc/common.cuh,
+and a run-time-sized form above 32), as the reference does.  The port's
+CPU path (the kernels' plain versions) against the reference, float64,
+with an intercept plus 23 seeded normal columns — a human GWAS's sex,
+age, batch and principal components: p-values within 1e-8, the other
+columns as in test_torch_cli.py.
 
 The reference's -lmm 4 runs its per-SNP block program on the port's
 null fit: its own null fit at 24 covariates costs a second compile as
@@ -148,7 +148,25 @@ def test_24_covariate_null_fit_maximises_likelihood(null, reml):
 
 
 def test_check_n_cvt_takes_up_to_32():
-    assert kernels.MAX_CVT == 32
-    kernels.check_n_cvt(32)
-    with pytest.raises(ValueError, match=r"0\.\.32 covariates, got 33"):
-        kernels.check_n_cvt(33)
+    """The covariate bound is gone (the name is the old bound's): K2-K8
+    take 33, 40 and 64 covariates, through their run-time-sized form
+    above 32 (tests/test_torch_wide_shapes.py holds 40 end to end)."""
+    assert not hasattr(kernels, "MAX_CVT")
+    for n_cvt in (32, 33, 40, 64):
+        kernels.check_n_cvt(n_cvt)
+    with pytest.raises(ValueError, match="n_cvt >= 0"):
+        kernels.check_n_cvt(-1)
+
+
+def test_check_mvlmm_and_bslmm_shapes_take_wide_shapes():
+    """Nor do the mvLMM and BSLMM kernels bound d, c or s_max: ten traits
+    with 13 or 14 design rows (the protocol's covariates with the SNP,
+    and with -gxe), and s_max 2,048."""
+    for c in (13, 14):
+        kernels.check_mvlmm_shape(10, c)
+    kernels.check_bslmm_shape(2048)
+    for bad in ((1, 2), (2, 0)):
+        with pytest.raises(ValueError, match="at least 2 phenotypes"):
+            kernels.check_mvlmm_shape(*bad)
+    with pytest.raises(ValueError, match="s_max >= 1"):
+        kernels.check_bslmm_shape(0)
