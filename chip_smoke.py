@@ -63,8 +63,10 @@
                   at d = 10), `-lmm 4 -n 1 2 -gxe` with the first 10
                   columns (14 rows a lane) and `-lmm 4 -n 1 2 -crt -pnr
                   0.9` (K14 at c = 13) on the first 1,024; on
-                  phase (g)'s data `-bslmm 1 -smin 1100 -smax 1536 -w 20
-                  -s 80`; on the mouse set's first 2,048 SNPs `-lmm 4`
+                  phase (g)'s data `-bslmm 1 -smin 1100 -smax 2048 -w 5
+                  -s 20` and `-bslmm 1 -smin 200 -smax 300 -w 5 -s 20`
+                  (GEMMA's default s_max) in float32 and float64; on the
+                  mouse set's first 1,024 SNPs `-lmm 4`
                   and `-lm 4` with `-c` of an intercept and 39 seeded
                   normal columns, `-lmm 4 -gxe` with 38 (40 a lane);
                   and it prints the lane splits of each path and phase
@@ -106,10 +108,12 @@
    the simulated 0.5; (k)'s -gxe and -crt at d = 2 against the port's
    float64 CPU run on the first 16 SNPs as (f)'s; its ten-trait run
    (float64, ROADMAP §C20) launching no float32 mvLMM kernel, >= 97%
-   finite p-values in [0, 1] (its gap to the CPU's float64 is not held,
-   §C20, and `scripts/mvlmm_d10_card_cpu.py` measures it);
-   every -smin 1100 chain's n_gamma >= 1,100; its c = 40 paths against
-   the port's float64 CPU run on the first 256 SNPs (16 for -gxe) as
+   finite p-values in [0, 1], and against the CPU's float64 on every lane
+   of the first 16 SNPs within D10_LIM (§C20; that CPU run goes on in a
+   process of its own and is compared after the holds);
+   every -smin 1100 chain's n_gamma >= 1,100 and every -smin 200 chain's
+   >= 200; its c = 40 paths against
+   the port's float64 CPU run on the first 128 SNPs (16 for -gxe) as
    (i)'s.
 4. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main path's shapes (n = 1940, S = the run's
@@ -129,17 +133,19 @@
    K2-K7's per-lane forms on the first 1,024 lanes of phase (i)'s -gxe
    block; K15 on the MQS paths' stacks (A = K, and -vc 2's weighted A
    against K) and K1's standardised form on the -ci paths' first block;
-   phase (k)'s forms: K2-K8 at c = 40 on 512 lanes of the main block
-   (K8 on all of it) and K2-K7's per-lane forms on 256 lanes of its -gxe
+   phase (k)'s forms: K2-K8 at c = 40 on 128 lanes of the main block
+   (K8 on all of it) and K2-K7's per-lane forms on 128 lanes of its -gxe
    block, K9-K11 on 64 seeded ten-trait lanes at 13 design rows (n =
    757; phase (k)'s equicorrelated traits part the kernel from its
    plain version, ROADMAP §C20) and on the first 64 lanes of the -gxe
    block, in both operand types, K14 on up to 32 lanes the c = 13 -crt
    path refined and on 32 seeded ten-trait lanes, K12 for 5 iterations
-   from each -smin 1100 chain's state),
+   from each -smin 1100 chain's state and 20 from each -smin 200 chain's;
+   K12's records carry its cluster's size and the chain's mean n_gamma),
    with the tolerances below, and times both (CUDA events, median after
    warm-up, L2 flushed between runs; the plain mvLMM loops once, on the
-   call compared).
+   call compared; K15 and torch.einsum also on the card's clock alone,
+   the host's enqueue hidden behind a sleep on the card, as device_ms).
 5. Prints the card's name and power limit, the kernels line and, last,
    {"ok": true, "device": {...}}; the whole report is also written to
    build/chip_smoke.out.
@@ -152,6 +158,7 @@ of JAX or of the reference package.
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -172,6 +179,12 @@ PEAK_F64_PER_S = 34e12
 # cores' 34 TFLOP/s
 PEAK_F64_TC_PER_S = 67e12
 L2_FLUSH_BYTES = 64 << 20        # more than the H100's 50 MB L2
+# about 0.2 ms of the card's clock, which _time_device_ms checks is longer
+# than the host takes to enqueue a wrapper's launches
+DEVICE_SLEEP_CYCLES = 400_000
+# every phase and kernel line of the report carries t_s, the seconds
+# since the script started
+T_START = time.time()
 
 # kernel vs plain version on the same inputs (float32 on the card: the
 # two sum in different orders and the kernels contract to FMA; float64:
@@ -308,8 +321,17 @@ MQS_CATS, MQS_SEED = 4, 8
 # (CVT40_GXE_LANES) lanes.
 WIDE_TRAITS, WIDE_MV_COV, WIDE_MV_CHECK = 10, 12, 16
 WIDE_MV_HOLD, WIDE_CRT_HOLD, WIDE_NR_HOLD = 64, 32, 16
-WIDE_SMIN, WIDE_SMAX, WIDE_W, WIDE_S, WIDE_HOLD_ITERS = 1100, 1536, 5, 20, 5
-CVT40_N, CVT40_SEED, CVT40_SNPS, CVT40_CHECK = 40, 40, 2048, 256
+WIDE_SMIN, WIDE_SMAX, WIDE_W, WIDE_S, WIDE_HOLD_ITERS = 1100, 2048, 5, 20, 5
+# BSLMM at GEMMA's default s_max, with s_min 200 (phase (k)): Omega of
+# 200-300 active ranks sits in rank 0's shared memory or across the
+# cluster's (K12's BsView), held for S300_HOLD_ITERS iterations
+S300_SMIN, S300_SMAX, S300_HOLD_ITERS = 200, 300, 20
+# s_min of a K12 hold from that chain's operands above which Omega
+# (n_gamma (n_gamma + 1) / 2 words) outgrows rank 0's shared memory at
+# s_max 300 on an H100 (the last n_gamma there is 216) and is cut over
+# the cluster's
+S300_DIST = 224
+CVT40_N, CVT40_SEED, CVT40_SNPS, CVT40_CHECK = 40, 40, 1024, 128
 CVT40_GXE_CHECK, CVT40_LANES, CVT40_GXE_LANES = 16, 128, 128
 # The ten-trait run's lanes: its null fits lie on the boundary (Vg of
 # rank 7-8; the ML Ve's two least eigenvalues ~1e-7, and the per-SNP REML
@@ -772,7 +794,7 @@ def _profile(argv):
             "top_device_ms": top}
 
 
-def _time_ms(fn, reps):
+def time_ms(fn, reps):
     """Median ms of `reps` calls after a warm-up.  Before each timed call
     a 64 MiB write, outside the events, evicts the L2, so the call reads
     its inputs from device memory as the main path does."""
@@ -792,6 +814,49 @@ def _time_ms(fn, reps):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return float(np.median(ts))
+
+
+def _time_device_ms(fn, reps):
+    """(median device ms, reps not hidden) of `reps` calls after a
+    warm-up: as time_ms, but the card sleeps DEVICE_SLEEP_CYCLES after
+    the flush, so that the host has enqueued the call before the first
+    event fires and the time is the card's alone, without the host's
+    enqueue (which time_ms includes).  A rep is hidden where the host's
+    time from just before enqueuing the sleep to enqueuing the last
+    event is below the sleep's own time on the card (measured once, with
+    the host ahead behind a longer sleep): the sleep cannot start before
+    it is enqueued, so the first event fires after the host is done.
+    The median is over the hidden reps, None if there are none."""
+    import torch
+
+    def ev():
+        return torch.cuda.Event(enable_timing=True)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    c0, c1 = ev(), ev()
+    torch.cuda._sleep(4 * DEVICE_SLEEP_CYCLES)
+    c0.record()
+    torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+    c1.record()
+    c1.synchronize()
+    sleep_ms = c0.elapsed_time(c1)
+    ts, missed = [], 0
+    for _ in range(reps):
+        flush.zero_()
+        a, b = ev(), ev()
+        h0 = time.perf_counter()
+        torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        b.synchronize()
+        if host_ms < sleep_ms:
+            ts.append(a.elapsed_time(b))
+        else:
+            missed += 1
+    return (float(np.median(ts)) if ts else None), missed
 
 
 def _p_errors(got, ref, tol, min_finite, same_nan=None):
@@ -815,6 +880,8 @@ def _p_errors(got, ref, tol, min_finite, same_nan=None):
 def _say(obj):
     """Print one report line (a JSON object, or text) and append it to
     REPORT: standard output may be cut to its end by whoever reads it."""
+    if isinstance(obj, dict) and ("phase" in obj or "kernel" in obj):
+        obj = {**obj, "t_s": time.time() - T_START}
     line = obj if isinstance(obj, str) else json.dumps(obj)
     print(line, flush=True)
     with open(REPORT, "a") as fh:
@@ -928,8 +995,8 @@ def _drive_mvlmm(kernels, paths, td, f64, dev):
 
 def _timed(fn):
     """(fn(), ms) of one call (CUDA events, L2 flushed before it): the
-    plain mvLMM loops, seconds long at a whole block, are timed on the
-    call that is compared."""
+    plain loops (the mvLMM's, lambda_solve's, the BSLMM chain's), seconds
+    long at a whole block, are timed on the call that is compared."""
     import torch
     torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                 device="cuda").zero_()
@@ -1094,7 +1161,7 @@ def _hold_mv_block(blk, record, check, amax):
               and err_all <= 1e-3)
     else:
         ok = cap_err <= 1e-6 and err_all <= 1e-3
-    ms = _time_ms(lambda: mvc.mph_em_cuda(*a), 3)
+    ms = time_ms(lambda: mvc.mph_em_cuda(*a), 3)
     its = float((kk.iters.double() + 1).sum())
     chk("mph_em", ok, {"capped_max_rel_err": cap_err, **wline,
                        "mean_iters": its / S, "ms": ms, "plain_ms": pms})
@@ -1108,8 +1175,8 @@ def _hold_mv_block(blk, record, check, amax):
     se = torch.sqrt(torch.diagonal(cq.Vbeta, dim1=-2, dim2=-1))
     err = amax(ck.p, cq.p)
     beta_se = float(((ck.beta - cq.beta).abs() / se).max())
-    ms = _time_ms(lambda: mvc.mph_calc_p_cuda(*a), 10)
-    pms = _time_ms(lambda: mvc.mph_calc_p_plain(*a), 3)
+    ms = time_ms(lambda: mvc.mph_calc_p_cuda(*a), 10)
+    pms = time_ms(lambda: mvc.mph_calc_p_plain(*a), 3)
     line = {"max_abs_err": err, "beta_max_err_over_se": beta_se}
     if wit:
         cc = mvc.mph_calc_p_plain(*_cpu(a))
@@ -1131,7 +1198,7 @@ def _hold_mv_block(blk, record, check, amax):
     nk = mvc.mph_nr_cuda(*a)
     nq, pms = _timed(lambda: mvc.mph_nr_plain(*a))
     l_rel, h_rel = _mrel(nk[2], nq[2]), _mrel(nk[3], nq[3])
-    ms = _time_ms(lambda: mvc.mph_nr_cuda(*a), 3)
+    ms = time_ms(lambda: mvc.mph_nr_cuda(*a), 3)
     line = {"S": m, "logl_max_rel_err": l_rel, "Hvar_max_rel_err": h_rel}
     if wit:
         nc = mvc.mph_nr_plain(*_cpu(a))
@@ -1295,7 +1362,7 @@ def _hold_crt_block(o, cnt, form, tag, of, record, check, max_lanes=None,
         return err, same
 
     err, same = gap(kk)
-    ms = _time_ms(lambda: mvc.calc_crt_cuda(*a), 3)
+    ms = time_ms(lambda: mvc.calc_crt_cuda(*a), 3)
     S, n, d = Ri.shape[0], ev.shape[0], Y.shape[0]
     c = X0.shape[0] + 1
     line = {"block": form or "snp", "S": S, "n": n, "d": d, "c": c,
@@ -1405,29 +1472,42 @@ def _drive_vc(kernels, paths, td, geno, f64):
 
 def _hold_pair_colsum(A, B, sfx, cnt, form, record, check):
     """K15 (sfx "" or "_f64") against its plain version on the stacks A
-    and B, timed beside torch.einsum; `form` None is the kernels line's
-    main row."""
+    and B, timed beside torch.einsum (time_ms, as every kernel; the
+    card's time alone, _time_device_ms, beside it as device_ms); `form`
+    None is the kernels line's main row."""
     import torch
     from gemma_torch.models import vc
     kk = vc.pair_colsum_cuda(A, B)
     pp = vc.pair_colsum_plain(A, B)
     err = float((kk - pp).abs().max() / pp.abs().max())
     del kk, pp
-    ms = _time_ms(lambda: vc.pair_colsum_cuda(A, B), 10)
-    pms = _time_ms(lambda: vc.pair_colsum_plain(A, B), 3)
-    lib = _time_ms(lambda: torch.einsum("ist,jst->ijt", A, B), 3)
+    ms = time_ms(lambda: vc.pair_colsum_cuda(A, B), 10)
+    lib = time_ms(lambda: torch.einsum("ist,jst->ijt", A, B), 5)
+    dev_ms, dev_missed = _time_device_ms(
+        lambda: vc.pair_colsum_cuda(A, B), 10)
+    dev_lib, lib_missed = _time_device_ms(
+        lambda: torch.einsum("ist,jst->ijt", A, B), 5)
+    pms = time_ms(lambda: vc.pair_colsum_plain(A, B), 3)
     ma, mb, n = A.shape[0], B.shape[0], A.shape[-1]
     same = A.data_ptr() == B.data_ptr()
     check("pair_colsum" + sfx, err <= 1e-12,
           {"block": form or "random", "max_rel_err": err, "n": n,
            "ma": ma, "mb": mb, "B_is_A": same, "ms": ms,
-           "plain_ms": pms, "library_ms": lib})
+           "plain_ms": pms, "library_ms": lib, "device_ms": dev_ms,
+           "library_device_ms": dev_lib,
+           "device_reps_not_hidden": [dev_missed, lib_missed],
+           "faster_than_library": ms < lib})
     record("pair_colsum" + sfx, err, ms, pms,
            (ma + (0 if same else mb)) * n * n * A.element_size()
            + 8 * ma * mb * n, 2 * ma * mb * n * n, peak=PEAK_F64_PER_S,
            launches=cnt, library_ms=lib, form=form,
+           extra={"device_ms": dev_ms, "library_device_ms": dev_lib},
            note="library_ms is torch.einsum('ist,jst->ijt', A, B) on "
-                "the same operands")
+                "the same operands; ms and library_ms include the "
+                "host's enqueue, as every kernel's; device_ms and "
+                "library_device_ms are the card's time alone (the "
+                "enqueue hidden behind a sleep on the card, over the "
+                "reps where it was)")
 
 
 def _drive_cvt(kernels, paths, td, common, kin, f64):
@@ -1685,8 +1765,8 @@ def _hold_mqs(counts_j, record, check):
         x_k = pack2.prologue_cuda(*args)
         x_p = pack2.prologue_plain(*args)
         err = float((x_k - x_p).abs().max())
-        ms = _time_ms(lambda: pack2.prologue_cuda(*args), 20)
-        pms = _time_ms(lambda: pack2.prologue_plain(*args), 5)
+        ms = time_ms(lambda: pack2.prologue_cuda(*args), 20)
+        pms = time_ms(lambda: pack2.prologue_plain(*args), 5)
         S = raw.shape[0]
         check(name, err <= tol, {"block": "ci_standardised",
                                  "max_abs_err": err, "S": S, "n": n,
@@ -1793,9 +1873,9 @@ def _hold_vc(counts_h, Xn, record, check):
             diff = float((kk - pp).abs().max())
             err = diff if dt == torch.float32 else \
                 diff / float(pp.abs().max())
-            ms = _time_ms(lambda: varcov.banded_cor_cuda(X, S, bw), 10)
-            pms = _time_ms(lambda: varcov.banded_cor_plain(X, S, bw), 3)
-            lib = _time_ms(lambda: library(X, S), 3)
+            ms = time_ms(lambda: varcov.banded_cor_cuda(X, S, bw), 10)
+            pms = time_ms(lambda: varcov.banded_cor_plain(X, S, bw), 3)
+            lib = time_ms(lambda: library(X, S), 3)
             tol = 1e-5 if dt == torch.float32 else 1e-12
             check("banded_cor" + sfx, err <= tol,
                   {"block": form or "band", "max_err": err, "S": S,
@@ -2019,8 +2099,8 @@ def _hold_bslmm(counts_g, record, check):
         fin = torch.isfinite(bp)
         err = float(((bk - bp).abs() / bp.abs())[fin].max())
         same = bool((torch.isfinite(bk) == fin).all())
-        ms = _time_ms(lambda: dap.bf_epilogue_cuda(*a), 20)
-        pms = _time_ms(lambda: dap.bf_epilogue_plain(*a), 5)
+        ms = time_ms(lambda: dap.bf_epilogue_cuda(*a), 20)
+        pms = time_ms(lambda: dap.bf_epilogue_plain(*a), 5)
         S, G = bk.shape
         isz = prods[0].element_size()
         check("dap_bf" + sfx, err <= tol and same,
@@ -2030,32 +2110,51 @@ def _hold_bslmm(counts_g, record, check):
                25 * S * G, peak=PEAK_F64_PER_S, launches=cnt)
 
 
-def _hold_chain(tag, sfx, cnt, iters, form, record, check, reps=3):
-    """K12 against its plain version for `iters` iterations from the
-    initial state and seed of the -bslmm 1/3 path `tag`, every iteration
-    recorded; K12 timed on `reps` launches."""
-    import dataclasses
-    import torch
-    from gemma_torch.models import bslmm as pb
-    res = RESULTS[tag]
-    ops, i0 = res["ops"], res["init"]
-    n = ops.eval.shape[0]
-    st = dataclasses.replace(res["settings"], w_step=0, s_step=iters,
-                             r_pace=1)
-    s0 = pb.init_state(ops, st, i0["h"], i0["rho"], i0["logp"],
-                       i0["n_gamma"], BSLMM_SEED)
-    kk = pb.bslmm_chain_cuda(ops, st, s0, iters, BSLMM_SEED)
-    pp, pms = _timed(lambda: pb.bslmm_chain_plain(ops, st, s0, iters,
-                                                  BSLMM_SEED))
+def chain_agreement(kk, pp, iters):
+    """(first, err, ok) of K12's chain kk against the plain version's pp
+    over `iters` recorded iterations: the first iteration whose ranks
+    differ or whose hyper-parameter row differs by more than 1e-9
+    relative (None if none), the largest relative difference before it,
+    and whether that comes after iteration 1,000 (or `iters`, if fewer)
+    or never."""
     hk, hp = kk.rec_hyp.cpu().numpy(), pp.rec_hyp.cpu().numpy()
     gk, gp = kk.rec_gamma.cpu().numpy(), pp.rec_gamma.cpu().numpy()
     row_rel = (np.abs(hk - hp) / np.maximum(np.abs(hp), 1e-300)).max(1)
     apart = np.flatnonzero((row_rel > 1e-9) | (gk != gp).any(1))
     first = int(apart[0]) if apart.size else None
     err = float(row_rel[:first].max()) if first != 0 else 0.0
-    ms = _time_ms(lambda: pb.bslmm_chain_cuda(ops, st, s0, iters,
-                                              BSLMM_SEED), reps)
-    ng = float(hk[:, 5].mean())
+    ok = (first is None or first >= min(1000, iters)) and err <= 1e-9
+    return first, err, ok
+
+
+def _hold_chain(tag, sfx, cnt, iters, form, record, check, reps=3,
+                s_min=None):
+    """K12 against its plain version for `iters` iterations from the
+    initial state and seed of the -bslmm 1/3 path `tag`, every iteration
+    recorded; K12 timed on `reps` launches.  `s_min` raises the path's
+    s_min and starts from that many active ranks."""
+    import dataclasses
+    import torch
+    from gemma_torch import kernels as kernels_mod
+    from gemma_torch.models import bslmm as pb
+    res = RESULTS[tag]
+    ops, i0 = res["ops"], res["init"]
+    n = ops.eval.shape[0]
+    st = dataclasses.replace(res["settings"], w_step=0, s_step=iters,
+                             r_pace=1)
+    ng0 = i0["n_gamma"]
+    if s_min is not None:
+        st = dataclasses.replace(st, s_min=s_min)
+        ng0 = s_min
+    s0 = pb.init_state(ops, st, i0["h"], i0["rho"], i0["logp"], ng0,
+                       BSLMM_SEED)
+    kk = pb.bslmm_chain_cuda(ops, st, s0, iters, BSLMM_SEED)
+    pp, pms = _timed(lambda: pb.bslmm_chain_plain(ops, st, s0, iters,
+                                                  BSLMM_SEED))
+    first, err, ok = chain_agreement(kk, pp, iters)
+    ms = time_ms(lambda: pb.bslmm_chain_cuda(ops, st, s0, iters,
+                                             BSLMM_SEED), reps)
+    ng = float(kk.rec_hyp[:, 5].mean())
     posts = st.n_mh + (st.a_mode == 13)
     isz = torch.finfo(ops.UtXT.dtype).bits // 8
     nops = iters * posts * (n * ng * ng + ng ** 3 / 3 + 20 * n)
@@ -2063,15 +2162,24 @@ def _hold_chain(tag, sfx, cnt, iters, form, record, check, reps=3):
     if st.a_mode == 13:
         nops += iters * 4 * n * n
         nbytes += iters * 2 * n * n * isz
-    ok = (first is None or first >= min(1000, iters)) and err <= 1e-9
+    kern = kernels_mod.variant(kernels_mod.BSLMM_CHAIN,
+                               kernels_mod.BSLMM_CHAIN_F64, ops.UtXT.dtype)
+    cluster = kern.cluster
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the bound of the cluster's SMs alone: a chain runs on one cluster
+    cluster_bound = max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_F64_PER_S) \
+        * 1e3 * sms / cluster
     check("bslmm_chain" + sfx, ok, {
         "block": form or "chain", "iterations": iters,
         "first_divergence": first, "hyp_max_rel_err_before": err,
         "accepts_card": kk.n_accept, "accepts_plain": pp.n_accept,
-        "mean_n_gamma": ng, "ms": ms, "plain_ms": pms,
+        "mean_n_gamma": ng, "cluster": cluster,
+        "cluster_bound_ms": cluster_bound, "ms": ms, "plain_ms": pms,
         "ms_per_1000_iterations": ms * 1000 / iters})
     record("bslmm_chain" + sfx, err, ms, pms, nbytes,
            nops, peak=PEAK_F64_PER_S, launches=cnt, form=form,
+           extra={"cluster": cluster, "mean_n_gamma": ng,
+                  "cluster_bound_ms": cluster_bound},
            note=f"ms and plain_ms: one launch and one plain loop of the "
                 f"same {iters} iterations; bound_ms "
                 "from this run's mean n_gamma, per iteration: "
@@ -2079,7 +2187,10 @@ def _hold_chain(tag, sfx, cnt, iters, form, record, check, reps=3):
                 "n n_gamma (the active rows) + 10 n words for each "
                 "posterior (and 4 n² operations, 2 n² elements of U "
                 "for the probit step); a chain is sequential and runs "
-                "on one SM, so it sits far above this whole-card bound")
+                f"on one cluster of {cluster} CTAs (one SM each), so it "
+                "sits far above this whole-card bound; cluster_bound_ms "
+                f"is the same bound on those {cluster} of the card's "
+                f"{sms} SMs")
 
 
 def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
@@ -2105,11 +2216,10 @@ def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
     mv64 = ("mph_em_f64", "mph_calc_p_f64", "mph_nr_f64")
     # beyond 8 traits the default run is the float64 run (ROADMAP §C20):
     # one run at d = 10, with -crt (K14 at d = 10) on its refined lanes;
-    # its float64 CPU run on the first WIDE_MV_CHECK SNPs goes on in a
-    # process of its own meanwhile
+    # its float64 CPU run on the first WIDE_MV_CHECK SNPs goes on
+    # meanwhile, until _check_d10 after the holds
     first = f"-snps {td}/mv_wide_first.snps".split()
-    pool, w10c = _start_cpu(mvk + cov + first + n10 + crt
-                            + "-lmm 4 -o W10C".split())
+    d10_cpu = _start_d10_cpu(td, n10 + crt)
     for key, argv, need in (
             ("w_d10", mvk + cov + s256 + n10 + crt
              + "-lmm 4 -o W10".split(), mv64 + ("calc_crt",)),
@@ -2164,7 +2274,8 @@ def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
         mvk + cov + s1024 + n12 + ["-lmm", "4"], RESULTS["WR"]["snp_indices"],
         dev, (torch.float64,), RESULTS["WR"]["null"])[torch.float64]
 
-    # BSLMM: s_min 1,100, s_max 1,536 (phase (g)'s data)
+    # BSLMM: s_min 1,100, s_max 2,048 (phase (g)'s data): past s_max
+    # 1,656 K12 keeps its vectors and rank lists in global scratch
     bs = (f"-g {geno} -outdir {td} -no-check -seed {BSLMM_SEED} "
           f"-p {td}/bs_pheno.txt -bslmm 1 -smin {WIDE_SMIN} -smax "
           f"{WIDE_SMAX} -w {WIDE_W} -s {WIDE_S}").split()
@@ -2176,12 +2287,24 @@ def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
         ("w_bslmm_f64", bs + f64 + "-o BWkd".split())],
         ("geno_prologue_f64", "lambda_solve_f64", "bslmm_chain_f64"),
         keep=True)
-    for tag in ("BWk", "BWkd"):
+    # BSLMM: s_min 200, s_max 300, GEMMA's default s_max (phase (g)'s data)
+    bs3 = (f"-g {geno} -outdir {td} -no-check -seed {BSLMM_SEED} "
+           f"-p {td}/bs_pheno.txt -bslmm 1 -smin {S300_SMIN} -smax "
+           f"{S300_SMAX} -w {WIDE_W} -s {WIDE_S}").split()
+    counts["s300"] = _drive(kernels, paths, "s300", [
+        ("s300", bs3 + "-o BSk".split())],
+        ("geno_prologue", "lambda_grid", "lambda_solve", "bslmm_chain"),
+        keep=True)
+    counts["s300_f64"] = _drive(kernels, paths, "s300_f64", [
+        ("s300_f64", bs3 + f64 + "-o BSkd".split())],
+        ("geno_prologue_f64", "lambda_solve_f64", "bslmm_chain_f64"),
+        keep=True)
+    for tag, smin in (("BWk", WIDE_SMIN), ("BWkd", WIDE_SMIN),
+                      ("BSk", S300_SMIN), ("BSkd", S300_SMIN)):
         ng = np.loadtxt(f"{td}/{tag}.hyp.txt", skiprows=1, ndmin=2)[:, 5]
         chk[f"{tag}_n_gamma"] = [float(ng.min()), float(ng.max())]
         chk[f"{tag}_n_gamma_start"] = RESULTS[tag]["init"]["n_gamma"]
-        if ng.min() < WIDE_SMIN or RESULTS[tag]["init"]["n_gamma"] \
-                < WIDE_SMIN:
+        if ng.min() < smin or RESULTS[tag]["init"]["n_gamma"] < smin:
             failed.append(f"{tag}_n_gamma")
 
     # K2-K8: CVT40_N covariates, -gxe with CVT40_N - 2 (CVT40_N a lane)
@@ -2190,14 +2313,14 @@ def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
                          rng.normal(size=(MOUSE_N, CVT40_N - 1))])
     np.savetxt(f"{td}/cov40.txt", W, fmt="%.6f")
     np.savetxt(f"{td}/cov38.txt", W[:, :CVT40_N - 2], fmt="%.6f")
-    for name, m in (("first2048.snps", CVT40_SNPS),
+    for name, m in (("first_c40.snps", CVT40_SNPS),
                     ("first40.snps", CVT40_CHECK),
                     ("gxe40.snps", CVT40_GXE_CHECK)):
         with open(f"{td}/{name}", "w") as fh:
             fh.write("\n".join(f"rs{j}" for j in range(m)) + "\n")
-    c40 = f"-c {td}/cov40.txt -snps {td}/first2048.snps".split()
+    c40 = f"-c {td}/cov40.txt -snps {td}/first_c40.snps".split()
     gxe38 = (f"-c {td}/cov38.txt -gxe {td}/env.txt -snps "
-             f"{td}/first2048.snps").split()
+             f"{td}/first_c40.snps").split()
     lane32 = ("lambda_grid", "lambda_solve", "wald_tail", "score_tail",
               "lrt_tail")
     lane64 = ("lambda_solve_f64", "wald_tail_f64", "score_tail_f64",
@@ -2234,18 +2357,6 @@ def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
         hold(tag, lambda: {**_p_errors(_aligned(rs_t, c_t, rs_r), ref_r,
                                        tol, 0.97, same_nan=same_nan),
                            "lanes": len(rs_t)})
-    # the ten-trait run against the CPU's float64 on every lane (D10_LIM,
-    # ROADMAP §C20), with the lanes that left their EM at the CPU's
-    # iteration reported
-    t0 = time.time()
-    RESULTS["W10C"] = w10c.get()
-    pool.close()
-    pool.join()
-    chk["W10_cpu_wait_seconds"] = time.time() - t0
-    for col, tol in D10_LIM["path"].items():
-        hold(f"W10_{col}", lambda: _mv_close(
-            RESULTS["W10"], RESULTS["W10C"], tol, 0.97, (col,), match=0.0,
-            tol_all=tol)[col])
     chk["phase_k_seconds"] = time.time() - t_k
     wide_paths = list(counts)
     _say({"phase": "check_wide", **chk,
@@ -2257,7 +2368,49 @@ def _drive_wide(kernels, paths, td, common, kin, f64, geno, dev):
                                   for t in ("VC", "VCd", "VG", "VGd")}})
     if failed:
         raise RuntimeError(f"phase (k) checks failed: {failed}")
-    return counts, W, ops
+    return counts, W, ops, d10_cpu
+
+
+def _start_d10_cpu(td, flags):
+    """(pool, async result, directory) of phase (k)'s ten-trait path with
+    `flags` on the CPU on the first WIDE_MV_CHECK SNPs (-o W10C), in a
+    process of its own, on copies of its inputs in a directory of its
+    own beside `td`: it outlives `td`.  The kinship's binary cache is
+    copied with it, times kept, so that both runs read the same float64
+    kinship and not one of them its 10-digit text."""
+    d10 = tempfile.mkdtemp(dir=os.path.dirname(td))
+    for f in ("mv_geno.txt.gz", "mv_pheno10.txt", "MK.cXX.txt",
+              "MK.cXX.txt.bin", "mv_cov12.txt", "mv_wide_first.snps"):
+        shutil.copy2(os.path.join(td, f), d10)
+    return _start_cpu(
+        (f"-g {d10}/mv_geno.txt.gz -p {d10}/mv_pheno10.txt -outdir {d10} "
+         f"-no-check -k {d10}/MK.cXX.txt -c {d10}/mv_cov12.txt -snps "
+         f"{d10}/mv_wide_first.snps").split() + flags
+        + "-lmm 4 -o W10C".split()) + (d10,)
+
+
+def _check_d10(pool, w10c, d10):
+    """Phase (k)'s ten-trait run against the CPU's float64 on every lane
+    (D10_LIM, ROADMAP §C20), with the lanes that left their EM at the
+    CPU's iteration reported.  Called after the holds, which the CPU's
+    run (started in phase (k)) overlaps."""
+    t0 = time.time()
+    RESULTS["W10C"] = w10c.get()
+    pool.close()
+    pool.join()
+    shutil.rmtree(d10)
+    chk, failed = {"W10_cpu_wait_seconds": time.time() - t0}, []
+    for col, tol in D10_LIM["path"].items():
+        try:
+            chk[f"W10_{col}"] = _mv_close(
+                RESULTS["W10"], RESULTS["W10C"], tol, 0.97, (col,),
+                match=0.0, tol_all=tol)[col]
+        except RuntimeError as e:
+            chk[f"W10_{col}"] = {"failed": str(e)}
+            failed.append(f"W10_{col}")
+    _say({"phase": "check_wide_d10", **chk})
+    if failed:
+        raise RuntimeError(f"phase (k) checks failed: {failed}")
 
 
 def _mv_seeded(d, c, n, S, dt, dev, seed=10):
@@ -2303,7 +2456,7 @@ def _hold_wide(ops, counts_k, record, check, amax):
     (two traits, 14 rows), float32 and float64 operands; K14 on up to
     WIDE_CRT_HOLD lanes that the c = 13 and the ten-trait -crt paths
     refined; K12 for WIDE_HOLD_ITERS iterations from the s_min 1,100
-    chains' states."""
+    chains' states and S300_HOLD_ITERS from the s_max 300 chains'."""
     import torch
     f32, f64 = torch.float32, torch.float64
     o = ops["W10"]
@@ -2333,6 +2486,14 @@ def _hold_wide(ops, counts_k, record, check, amax):
                 record, check, reps=1)
     _hold_chain("BWkd", "_f64", counts_k["w_bslmm_f64"], WIDE_HOLD_ITERS,
                 "s_min1100", record, check, reps=1)
+    _hold_chain("BSk", "", counts_k["s300"], S300_HOLD_ITERS, "s_max300",
+                record, check)
+    _hold_chain("BSkd", "_f64", counts_k["s300_f64"], S300_HOLD_ITERS,
+                "s_max300", record, check)
+    # past S300_DIST active ranks Omega no longer fits rank 0's shared
+    # memory and is cut over the cluster's
+    _hold_chain("BSk", "", counts_k["s300"], S300_HOLD_ITERS,
+                "s_max300_distributed", record, check, s_min=S300_DIST)
 
 
 def main():
@@ -2368,9 +2529,10 @@ def main():
 
     # 1. build
     t0 = time.time()
-    kernels.build_all()
+    by_source = kernels.build_all()
     build_s = time.time() - t0
-    _say({"phase": "build", "seconds": build_s})
+    _say({"phase": "build", "seconds": build_s,
+          "seconds_to_each_library": by_source})
 
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -2582,8 +2744,8 @@ def main():
         # (j) summary statistics (MQS) on phase (h)'s data
         counts_j = _drive_mqs(kernels, paths, td, geno, f64, vc_rows)
         # (k) shapes past the kernels' old bounds
-        counts_k, W40, wide_ops = _drive_wide(kernels, paths, td, common,
-                                              kin, f64, geno, dev)
+        counts_k, W40, wide_ops, d10_cpu = _drive_wide(
+            kernels, paths, td, common, kin, f64, geno, dev)
 
         # 4. kernels against their plain versions, main-path shapes
         from gemma_torch.config import GemmaConfig
@@ -2616,7 +2778,7 @@ def main():
 
     def record(name, err, ms, plain_ms, nbytes, nops, peak=PEAK_F32_PER_S,
                launches=None, library_ms=None, note=None, form=None,
-               tol=None):
+               tol=None, extra=None):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = nops / peak * 1e3
         k = getattr(kernels, name.upper())
@@ -2627,6 +2789,7 @@ def main():
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "library_ms": library_ms, "tolerance": TOL[name]}
+        entry.update(extra or {})
         if note:
             entry["note"] = note
         if form is not None:
@@ -2665,9 +2828,9 @@ def main():
         x_k = pack2.prologue_cuda(raw_a, n, pack2.IMPUTE, False, None, dt)
         x_p = pack2.prologue_plain(raw_a, n, pack2.IMPUTE, False, None, dt)
         err = float((x_k - x_p).abs().max())
-        ms = _time_ms(lambda: pack2.prologue_cuda(raw_a, n, pack2.IMPUTE,
-                                                  False, None, dt), 20)
-        pms = _time_ms(lambda: pack2.prologue_plain(
+        ms = time_ms(lambda: pack2.prologue_cuda(raw_a, n, pack2.IMPUTE,
+                                                 False, None, dt), 20)
+        pms = time_ms(lambda: pack2.prologue_plain(
             raw_a, n, pack2.IMPUTE, False, None, dt), 5)
         c_k = pack2.prologue_cuda(raw_a, n, pack2.CENTRE, True, None, dt)
         c_p = pack2.prologue_plain(raw_a, n, pack2.CENTRE, True, None, dt)
@@ -2709,10 +2872,10 @@ def main():
                      + 8 * n * torch.finfo(f32).eps / lam_g)
             worst = float((diff / bound).max())
             err = float(diff.max())
-            ms = _time_ms(lambda: lk.grid_epilogue_cuda(gp, n, nc, False,
-                                                        reml), 20)
-            pms = _time_ms(lambda: lk.grid_epilogue_plain(gp, n, nc, False,
-                                                          reml), 3)
+            ms = time_ms(lambda: lk.grid_epilogue_cuda(gp, n, nc, False,
+                                                       reml), 20)
+            pms = time_ms(lambda: lk.grid_epilogue_plain(gp, n, nc, False,
+                                                         reml), 3)
             check("lambda_grid", worst <= 1.0,
                   {"max_abs_err": err, "max_err_over_bound": worst,
                    "block": label, "fit": tag, "S": S_, "G": G, "ms": ms,
@@ -2737,7 +2900,9 @@ def main():
             args = (d_k, fine_np, data, nc, False, reml, 1e-5, 1e5, 10,
                     lk.per_lane(data))
             r_k = opt.lambda_solve_cuda(*args)
-            r_p = opt.lambda_solve_plain(*args)
+            # the plain search takes seconds: timed (REML only) on the
+            # call that is compared
+            r_p, pms = _timed(lambda: opt.lambda_solve_plain(*args))
             lam_k[tag] = r_k
             if reml:
                 pk = lk.wald_pvalues_plain(r_k.lam, data, nc)[2]
@@ -2751,10 +2916,8 @@ def main():
                               / r_p.logf.abs()).nan_to_num(0.0).max())
             same_finite = not bool(
                 (torch.isfinite(pk) != torch.isfinite(pp)).any())
-            ms = _time_ms(lambda: opt.lambda_solve_cuda(*args), 5)
-            # the plain search takes seconds: timed for REML only
-            pms = _time_ms(lambda: opt.lambda_solve_plain(*args),
-                           1) if reml else None
+            ms = time_ms(lambda: opt.lambda_solve_cuda(*args), 5)
+            pms = pms if reml else None
             check("lambda_solve",
                   err <= 1e-3 and logf_rel <= 1e-4 and same_finite,
                   {"max_abs_err": err, "logf_max_rel": logf_rel,
@@ -2785,8 +2948,8 @@ def main():
             ok = torch.isfinite(p_p)
             err = float((p_k[ok] - p_p[ok]).abs().max())
             beta_se = float(((b_k - b_p).abs() / s_p)[ok].max())
-            ms = _time_ms(lambda: fk(lam, data, nc), 20)
-            pms = _time_ms(lambda: fp(lam, data, nc), 3)
+            ms = time_ms(lambda: fk(lam, data, nc), 20)
+            pms = time_ms(lambda: fp(lam, data, nc), 3)
             check(name, err <= (3e-5 if form else 1e-5) and beta_se <= 1e-3,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
                    "block": label, "S": S_, "ms": ms, "plain_ms": pms})
@@ -2802,9 +2965,9 @@ def main():
         logl_rel = float(((l_k.double() - l_p.double()).abs()
                           / l_p.double().abs()).nan_to_num(0.0).max())
         err = amax(p_k, p_p)
-        ms = _time_ms(lambda: lk.lrt_pvalues_cuda(
+        ms = time_ms(lambda: lk.lrt_pvalues_cuda(
             ml.lam, ml.logf, data, nc, l0, logl0), 20)
-        pms = _time_ms(lambda: lk.lrt_pvalues_plain(
+        pms = time_ms(lambda: lk.lrt_pvalues_plain(
             ml.lam, ml.logf, data, nc, l0, logl0), 3)
         # the library's tail alone on the same Δ
         d64 = data._replace(eval=data.eval.double(), UtWy=data.UtWy.double(),
@@ -2812,7 +2975,7 @@ def main():
         delta = (lk.logf_stable(ml.lam.double(), d64, nc, False, False)
                  - lk.logf_stable(l0.double().reshape(-1), d64, nc, True,
                                   False))
-        lib_ms = _time_ms(lambda: torch.special.gammaincc(
+        lib_ms = time_ms(lambda: torch.special.gammaincc(
             torch.full_like(delta, 0.5), delta.clamp(min=0.0)), 20)
         check("lrt_tail", err <= 1e-6 and logl_rel <= 1e-12,
               {"mode": "speed", "max_abs_err": err, "logl_max_rel": logl_rel,
@@ -2842,7 +3005,7 @@ def main():
             tag = "reml" if reml else "ml"
             args = (data, nc, False, reml, 1e-5, 1e5, 10)
             r_k = opt.lambda_solve_f64_cuda(*args)
-            r_p = opt.lambda_solve_f64_plain(*args)
+            r_p, pms = _timed(lambda: opt.lambda_solve_f64_plain(*args))
             fits[tag] = r_k
             pk = lk.wald_pvalues_plain(r_k.lam, data, nc)[2]
             pp = lk.wald_pvalues_plain(r_p.lam, data, nc)[2]
@@ -2851,9 +3014,8 @@ def main():
                               / r_p.logf.abs()).nan_to_num(0.0).max())
             nan_diff = int((torch.isnan(r_k.lam)
                             != torch.isnan(r_p.lam)).sum())
-            ms = _time_ms(lambda: opt.lambda_solve_f64_cuda(*args), 3)
-            pms = _time_ms(lambda: opt.lambda_solve_f64_plain(*args),
-                           1) if reml else None
+            ms = time_ms(lambda: opt.lambda_solve_f64_cuda(*args), 3)
+            pms = pms if reml else None
             check("lambda_solve_f64",
                   err <= 1e-6 and logf_rel <= 1e-9
                   and nan_diff <= 1e-3 * S_,
@@ -2888,8 +3050,8 @@ def main():
             err = float((p_k[ok] - p_p[ok]).abs().max())
             beta_se = float(((b_k - b_p).abs() / s_p)[ok].max())
             same_nan = bool((torch.isnan(p_k) == torch.isnan(p_p)).all())
-            ms = _time_ms(lambda: fk(lam, data, nc), 20)
-            pms = _time_ms(lambda: fp(lam, data, nc), 3)
+            ms = time_ms(lambda: fk(lam, data, nc), 20)
+            pms = time_ms(lambda: fp(lam, data, nc), 3)
             check(name, err <= 1e-10 and beta_se <= 1e-8 and same_nan
                   and p_k.dtype == f64,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
@@ -2904,7 +3066,7 @@ def main():
         err = amax(p_k, p_p)
         same = bool((torch.isnan(p_k) == torch.isnan(p_p)).all()
                     and torch.equal(l_k.nan_to_num(0), l_p.nan_to_num(0)))
-        ms = _time_ms(lambda: lk.lrt_pvalues_cuda(
+        ms = time_ms(lambda: lk.lrt_pvalues_cuda(
             ml.lam, ml.logf, data, nc, l0, logl0), 20)
         check("lrt_tail", err <= 1e-12 and same,
               {"mode": "parity", "max_abs_err": err, "block": label,
@@ -3035,8 +3197,8 @@ def main():
                              / p_out.se).nan_to_num(0.0).max())
             same_nan = bool((torch.isnan(k_out.p_wald)
                              == torch.isnan(p_out.p_wald)).all())
-            ms = _time_ms(lambda: lm.lm_tail_cuda(*args), 20)
-            pms = _time_ms(lambda: lm.lm_tail_plain(*args), 3)
+            ms = time_ms(lambda: lm.lm_tail_cuda(*args), 20)
+            pms = time_ms(lambda: lm.lm_tail_plain(*args), 3)
             S_ = rows.shape[0]
             check(name, err <= tol_p and beta_se <= tol_b and same_nan,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
@@ -3059,6 +3221,7 @@ def main():
     _hold_vc(counts_h, vc_rows, record, check)
     _hold_mqs(counts_j, record, check)
     _hold_wide(wide_ops, counts_k, record, check, amax)
+    _check_d10(*d10_cpu)
 
     for entry in results:
         if entry["name"] in per_lane:

@@ -293,7 +293,12 @@ mph_em_kernel(int reml, int staged, int max_iter, double prec, int n, int d,
     return mv_dyn(d, c) ? 8 * mv_em_scratch(d, c) : 0;                       \
   }
 
+// built once a precision (-DGT_ONLY=32 / 64, kernels.Kernel's `only`)
+#if GT_ONLY != 64
 MPH_EM_LAUNCH(mph_em, float)
+#endif
+#if GT_ONLY != 32
 MPH_EM_LAUNCH(mph_em_f64, double)
+#endif
 
 GT_ERROR_FN(mph_em)

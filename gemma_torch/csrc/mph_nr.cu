@@ -385,7 +385,12 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
                 (mv_dyn(d, c) ? mv_nr_dyn_extra(d, c) : 0));                 \
   }
 
+// built once a precision (-DGT_ONLY=32 / 64, kernels.Kernel's `only`)
+#if GT_ONLY != 64
 MPH_NR_LAUNCH(mph_nr, float)
+#endif
+#if GT_ONLY != 32
 MPH_NR_LAUNCH(mph_nr_f64, double)
+#endif
 
 GT_ERROR_FN(mph_nr)

@@ -11,10 +11,12 @@ checkout, at first use, and `ctypes` binds it:
 
 The library name carries a hash of the source, the shared headers
 (`*.cuh`) and the flags, so an edited source is rebuilt.  `build_all()`
-starts one `nvcc` per source at once.  A source may hold a float64
+starts one `nvcc` per library at once.  A source may hold a float64
 instantiation beside its float32 kernel: that is a `Kernel` of its own
 (name `<name>_f64`, entry point `<name>_f64_launch`) with its own count,
-built from the same library.
+built into the same library, or, for the mvLMM's K9 and K11, whose
+precisions each take most of their source's build, into one of its own
+(`only`: the source compiled with `-DGT_ONLY=32` or `64`).
 
 Every `Kernel` keeps `launches`, a plain count that its wrapper raises
 by one where it launches the kernel and nowhere else; a run reads them
@@ -31,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -72,41 +75,55 @@ class Kernel:
     """One CUDA kernel: its source, its C entry point, its launch count."""
 
     def __init__(self, name: str, argtypes: tuple, replaces: str,
-                 source: str | None = None):
+                 source: str | None = None, only: int = 0):
         self.name = name
         self.stem = source or name
         self.source = os.path.join(CSRC_DIR, f"{self.stem}.cu")
+        # nonzero: the source is built with -DGT_ONLY=<only> into a
+        # library of this entry point's own, so that nvcc compiles a
+        # source's precisions at once (each is most of its build time)
+        self.only = only
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
         # launches beyond the first that a lane split added (launch_lanes)
         self.splits = 0
+        # CTAs in the thread-block cluster of the last launch (K12)
+        self.cluster = 0
         self._fn = None
         self._err = None
         self._lib = None
 
+    @property
+    def lib_stem(self) -> str:
+        return f"{self.stem}_{self.only}" if self.only else self.stem
+
+    def _flags(self) -> tuple:
+        return NVCC_FLAGS + ((f"-DGT_ONLY={self.only}",) if self.only
+                             else ())
+
     def library_path(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(self._flags()).encode())
         headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
         for path in [self.source] + [os.path.join(CSRC_DIR, f)
                                      for f in headers]:
             with open(path, "rb") as fh:
                 h.update(fh.read())
         return os.path.join(BUILD_DIR,
-                            f"lib{self.stem}-{h.hexdigest()[:12]}.so")
+                            f"lib{self.lib_stem}-{h.hexdigest()[:12]}.so")
 
     def build(self) -> str:
         """Compile the source unless its library exists; returns the
         library path.  ptxas's register/shared-memory report lands
-        beside it as `<name>.ptxas.txt`."""
+        beside it as `<lib_stem>.ptxas.txt`."""
         lib = self.library_path()
         if os.path.exists(lib):
             return lib
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
+        cmd = [_nvcc(), *self._flags(), "-o", tmp, self.source]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        with open(os.path.join(BUILD_DIR, f"{self.stem}.ptxas.txt"),
+        with open(os.path.join(BUILD_DIR, f"{self.lib_stem}.ptxas.txt"),
                   "w") as fh:
             fh.write(res.stdout + res.stderr)
         if res.returncode != 0:
@@ -252,8 +269,9 @@ LM_TAIL_F64 = Kernel("lm_tail_f64", _LM_ARGS, _LM_REPLACES,
 _EM_ARGS = (_I, _I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
             _P, _I, _P, _P, _P, _P, _P, _P) + _LANES
 _EM_REPLACES = "gemma_tpu/models/mvlmm_core.py:225 mph_em"
-MPH_EM = Kernel("mph_em", _EM_ARGS, _EM_REPLACES)
-MPH_EM_F64 = Kernel("mph_em_f64", _EM_ARGS, _EM_REPLACES, source="mph_em")
+MPH_EM = Kernel("mph_em", _EM_ARGS, _EM_REPLACES, only=32)
+MPH_EM_F64 = Kernel("mph_em_f64", _EM_ARGS, _EM_REPLACES, source="mph_em",
+                    only=64)
 _P_ARGS = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
            _P, _P, _P, _P) + _LANES
 _P_REPLACES = ("gemma_tpu/models/mvlmm_core.py:712 mph_calc_p + "
@@ -265,8 +283,9 @@ _NR_ARGS = (_I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
             _P, _P, _P) + _LANES
 _NR_REPLACES = ("gemma_tpu/models/mvlmm_core.py:439 mph_nr (with "
                 "_nr_logl_fn :393, _is_pd :423)")
-MPH_NR = Kernel("mph_nr", _NR_ARGS, _NR_REPLACES)
-MPH_NR_F64 = Kernel("mph_nr_f64", _NR_ARGS, _NR_REPLACES, source="mph_nr")
+MPH_NR = Kernel("mph_nr", _NR_ARGS, _NR_REPLACES, only=32)
+MPH_NR_F64 = Kernel("mph_nr_f64", _NR_ARGS, _NR_REPLACES, source="mph_nr",
+                    only=64)
 
 # K12, the BSLMM chain: segment, shapes and settings, the seed, then the
 # operands, the state and the scratch (models/bslmm.py bslmm_chain_cuda)
@@ -290,9 +309,11 @@ CALC_CRT = Kernel(
     "calc_crt", (_I,) * 5 + (_P,) * 7 + _LANES,
     "gemma_tpu/models/mvlmm_core.py:681 calc_crt (_calc_crt_one :561; from "
     "gemma_tpu/models/mvlmm.py:322 _crt_block)")
-# K15, the pair column sums of -vc: ma, mb, n, same, A, B, the output's
-# row of matrices (mb of the whole output) and the output
-_PC_ARGS = (_I, _I, _I, _I, _P, _P, _I, _P)
+# K15, the pair column sums of -vc: ma, mb, n, same, the row slices
+# (rows, ns), the columns a thread reads, A, B, the output's row of
+# matrices (mb of the whole output), the slices' partial sums and the
+# output
+_PC_ARGS = (_I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P)
 _PC_REPLACES = ("gemma_tpu/models/vc.py:50 _he_core (:74), :135 _reml_dev12 "
                 "(:154), :262 _acl_moments (:285): the Hadamard pair sums")
 PAIR_COLSUM = Kernel("pair_colsum", _PC_ARGS, _PC_REPLACES)
@@ -323,12 +344,25 @@ def variant(k32: Kernel, k64: Kernel, dtype: torch.dtype) -> Kernel:
                     f"{dtype}")
 
 
-def build_all() -> None:
-    """Build every kernel, one nvcc per source, all started together."""
-    sources = {k.stem: k for k in ALL}
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of `device`'s card, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def build_all() -> dict:
+    """Build every kernel, one nvcc per library, all started together;
+    returns each library's seconds from the start to its end (about 0
+    where it was built already)."""
+    sources = {k.lib_stem: k for k in ALL}
+    t0 = time.perf_counter()
+
+    def build(k):
+        k.build()
+        return time.perf_counter() - t0
     with ThreadPoolExecutor(len(sources)) as pool:
-        for fut in [pool.submit(k.build) for k in sources.values()]:
-            fut.result()
+        futs = {stem: pool.submit(build, k) for stem, k in sources.items()}
+        return {stem: fut.result() for stem, fut in futs.items()}
 
 
 def reset_launches() -> None:

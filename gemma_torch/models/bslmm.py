@@ -6,8 +6,9 @@ kinship eigenbasis: y = X_gamma beta + u + e with a sparse effect set
 gamma, u ~ N(0, sigma_b^2 tau^-1 diag(eval)), and Metropolis-Hastings
 over (h, rho, log pi, gamma).
 
-The chain is kernel K12 (`csrc/bslmm_chain.cu`): one thread block runs a
-whole segment of iterations with the state on the card.  Its plain
+The chain is kernel K12 (`csrc/bslmm_chain.cu`): one thread-block
+cluster runs a whole segment of iterations with the state on the card,
+each CTA on its slice of the individuals (`chain_slices`).  Its plain
 version is the loop below, one iteration at a time.  Both draw from the
 same counter-based stream (`ops/philox.py`): each draw is named by the
 iteration t, its purpose in the MH step and its index, so kernel and
@@ -50,6 +51,8 @@ P_UTU, P_TAU, P_Z, P_ACC, P_TZ, P_MZ = 6, 7, 8, 9, 10, 11
 REFRESH, INIT, STREAM_STRIDE = 16, 32, 64
 # iterations a K12 launch runs at most
 SEGMENT = 10000
+# CTAs in K12's cluster at most (BS_CLUSTER_WIDE in csrc/bslmm_chain.cu)
+CHAIN_CLUSTER_MAX = 16
 
 
 @dataclasses.dataclass
@@ -505,20 +508,44 @@ def chain_config(ops: ChainOperands, st: BslmmSettings) -> torch.Tensor:
     return torch.tensor(vals, dtype=F64, device=ops.eval.device)
 
 
+def chain_slices(n: int, cs: int) -> list:
+    """The individuals each CTA of K12's cluster of cs takes in every pass
+    over n: [r n / cs, (r + 1) n / cs) for rank r, in rank order."""
+    return [(r * n // cs, (r + 1) * n // cs) for r in range(cs)]
+
+
+def chain_scratch_layout(n: int, s_max: int,
+                         cs: int = CHAIN_CLUSTER_MAX) -> dict:
+    """float64-word offsets of K12's scratch parts, in order (bs_carve in
+    bslmm_chain.cu), and the total under "total": two proposal slots
+    (alpha, Utu, UtXb, beta), w_hi and the probit step's two n-vectors,
+    Omega's packed lower triangle where it outgrows the cluster's shared
+    memory, rank 0's X'H^-1y, beta_hat and z where the vectors outgrow
+    it, and each CTA's three s_max rank lists' p_gamma and the lists
+    (int) likewise."""
+    parts = (("slot0", 3 * n + s_max), ("slot1", 3 * n + s_max),
+             ("w_hi", n), ("zv", n), ("vv", n),
+             ("omega", s_max * (s_max + 1) // 2), ("vectors", 3 * s_max),
+             ("p_gamma", cs * 3 * s_max), ("ranks", (cs * 3 * s_max + 1) // 2))
+    out, at = {}, 0
+    for name, words in parts:
+        out[name] = at
+        at += words
+    out["total"] = at
+    return out
+
+
 def chain_scratch(n: int, s_max: int) -> int:
-    """float64 words of K12's scratch (bslmm_chain_run in bslmm_chain.cu):
-    two proposal slots (alpha, Utu, UtXb, beta), w_hi, two n-vectors of
-    the probit step, Omega, three s_max vectors and the room for the three
-    s_max int rank lists, which the kernel keeps there only where they
-    outgrow its shared memory."""
-    return (2 * (3 * n + s_max) + 3 * n + s_max * s_max + 3 * s_max
-            + (3 * s_max + 1) // 2)
+    """float64 words of K12's scratch for any cluster the card runs."""
+    return chain_scratch_layout(n, s_max)["total"]
 
 
 def bslmm_chain_cuda(ops: ChainOperands, st: BslmmSettings,
                      state: ChainState, t1: int, seed: int) -> ChainState:
-    """K12 on the card: one launch runs iterations [state.t, t1).  The
-    state's tensors are cloned and the kernel updates the clones."""
+    """K12 on the card: one launch of a thread-block cluster runs
+    iterations [state.t, t1) (the cluster's size lands in the kernel's
+    `cluster`).  The state's tensors are cloned and the kernel updates
+    the clones."""
     dt = ops.UtXT.dtype
     kern = kernels.variant(kernels.BSLMM_CHAIN, kernels.BSLMM_CHAIN_F64, dt)
     p, n = ops.UtXT.shape
@@ -546,7 +573,8 @@ def bslmm_chain_cuda(ops: ChainOperands, st: BslmmSettings,
            shape)
     scal = torch.tensor([getattr(state, f) for f in _SCALARS], dtype=F64,
                         device=dev)
-    ints = torch.tensor([getattr(state, f) for f in _INTS],
+    # the kernel writes the CTAs of its cluster after the state's ints
+    ints = torch.tensor([getattr(state, f) for f in _INTS] + [0],
                         dtype=torch.int32, device=dev)
     cfg = chain_config(ops, st)
     work = torch.empty(chain_scratch(n, st.s_max), dtype=F64, device=dev)
@@ -561,7 +589,10 @@ def bslmm_chain_cuda(ops: ChainOperands, st: BslmmSettings,
             scal.data_ptr(), ints.data_ptr(),
             *(out[f].data_ptr() for f in _VECTORS), n_rec, work.data_ptr())
     vals = dict(zip(_SCALARS, scal.tolist()))
-    vals.update(zip(_INTS, ints.tolist()))
+    got = ints.tolist()
+    vals.update(zip(_INTS, got))
+    if t1 > state.t:
+        kern.cluster = got[-1]
     return ChainState(t=t1, **vals, **out)
 
 

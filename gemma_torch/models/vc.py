@@ -34,6 +34,7 @@ products are float32, the pair sums float64.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,6 +46,9 @@ from gemma_torch.ops.center import (center_matrix_w, center_vector_w,
 _F64 = torch.float64
 # matrices of one stack per K15 launch (PC_MAX_M in csrc/pair_colsum.cu)
 PC_MAX_M = 8
+# K15's grid (csrc/pair_colsum.cu): threads a column tile is wide, rows a
+# row slice takes at least, blocks wanted on each SM
+PC_LANES, PC_ROWS_MIN, PC_BLOCKS_PER_SM = 32, 32, 4
 
 
 @dataclasses.dataclass
@@ -66,10 +70,57 @@ def pair_colsum_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ist,jst->ijt", A.to(_F64), B.to(_F64))
 
 
+def pc_cols_per_thread(m: int, isz: int, n: int, aligned: bool) -> int:
+    """Columns a thread of a K15 launch reads at once, for stacks of up
+    to m matrices of isz-byte values: 16 bytes where the products fit the
+    registers (m <= 2; float64 also m = 4), 8 for float32 at m = 4, one
+    value at m = 8, and one wherever n or an operand's address is not a
+    multiple of the vector (pair_colsum_vec in csrc/pair_colsum.cu)."""
+    m = 1 << max(0, m - 1).bit_length()       # 1, 2, 4 or 8, as the kernel
+    v16 = 16 // isz
+    v = v16 if m <= 2 else (2 if m == 4 else 1)
+    return v if aligned and n % v == 0 else 1
+
+
+def pc_slices(n: int, cols: int, sms: int) -> tuple:
+    """(rows, ns): K15 splits the n rows into ns slices of `rows` (the
+    last may be shorter, none empty) so that its grid, one block per
+    tile of PC_LANES * cols columns and slice, puts PC_BLOCKS_PER_SM
+    blocks on each of the card's sms SMs, with at least PC_ROWS_MIN rows
+    a slice where n has them."""
+    tiles = -(-n // (PC_LANES * cols))
+    want = -(-PC_BLOCKS_PER_SM * sms // tiles)
+    ns = max(1, min(want, n // PC_ROWS_MIN))
+    rows = -(-n // ns)
+    return rows, -(-n // rows)
+
+
+@functools.lru_cache(maxsize=256)
+def pc_launches(ma: int, mb: int, n: int, isz: int, sms: int,
+                aligned: bool) -> tuple:
+    """K15's launches for stacks of ma and mb n×n matrices: one per pair
+    of chunks of PC_MAX_M, each (i0, j0, ka, kb, cols, rows, ns)."""
+    out = []
+    for i0 in range(0, ma, PC_MAX_M):
+        for j0 in range(0, mb, PC_MAX_M):
+            ka, kb = min(PC_MAX_M, ma - i0), min(PC_MAX_M, mb - j0)
+            cols = pc_cols_per_thread(max(ka, kb), isz, n, aligned)
+            out.append((i0, j0, ka, kb, cols, *pc_slices(n, cols, sms)))
+    return tuple(out)
+
+
+def pc_scratch_words(launches: tuple, n: int) -> int:
+    """float64 words of the slices' partial sums that one scratch must
+    hold for every launch in turn: ns ka kb n at the largest."""
+    return max((ns * ka * kb * n for _, _, ka, kb, _, _, ns in launches),
+               default=0)
+
+
 def pair_colsum_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """K15 on the card: one launch per pair of chunks of PC_MAX_M
-    matrices (one launch for m <= 8); where B is A each matrix is read
-    once for all its pairs."""
+    matrices (one launch for m <= 8), its rows split over the grid and
+    the slices' partial sums added in slice order; where B is A each
+    matrix is read once for all its pairs."""
     dt = A.dtype
     ma, n = A.shape[0], A.shape[-1]
     mb = B.shape[0]
@@ -79,13 +130,15 @@ def pair_colsum_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     same = A.data_ptr() == B.data_ptr() and ma == mb
     out = torch.empty((ma, mb, n), dtype=_F64, device=A.device)
     isz = A.element_size()
-    for i0 in range(0, ma, PC_MAX_M):
-        for j0 in range(0, mb, PC_MAX_M):
-            ka, kb = min(PC_MAX_M, ma - i0), min(PC_MAX_M, mb - j0)
-            kern.launch(A.device, ka, kb, n, int(same and i0 == j0),
-                        A.data_ptr() + i0 * n * n * isz,
-                        B.data_ptr() + j0 * n * n * isz, mb,
-                        out[i0, j0].data_ptr())
+    aligned = (A.data_ptr() | B.data_ptr()) % 16 == 0
+    plan = pc_launches(ma, mb, n, isz, kernels.sm_count(A.device), aligned)
+    part = torch.empty(pc_scratch_words(plan, n), dtype=_F64,
+                       device=A.device)
+    for i0, j0, ka, kb, cols, rows, ns in plan:
+        kern.launch(A.device, ka, kb, n, int(same and i0 == j0), rows, ns,
+                    cols, A.data_ptr() + i0 * n * n * isz,
+                    B.data_ptr() + j0 * n * n * isz, mb, part.data_ptr(),
+                    out.data_ptr() + (i0 * mb + j0) * n * 8)
     return out
 
 
