@@ -141,8 +141,13 @@
    block, in both operand types, K14 on up to 32 lanes the c = 13 -crt
    path refined and on 32 seeded ten-trait lanes, K12 for 5 iterations
    from each -smin 1100 chain's state and 20 from each -smin 200 chain's;
-   K12's records carry its cluster's size and the chain's mean n_gamma),
-   with the tolerances below, and times both (CUDA events, median after
+   K12's records carry its cluster's size and the chain's mean n_gamma;
+   K3 and K7 also on seeded blocks that mix the searches' exits in each
+   block of lanes, at 1, L - 1, L + 1 and 3L + 3 lanes (_hold_mixed), at
+   c = 40 split into launches of three lanes, and their launch layout's
+   Python mirror against the kernels' size functions; their records
+   carry `evals`, the evaluations the plain search made, and
+   `ms_per_eval`), with the tolerances below, and times both (CUDA events, median after
    warm-up, L2 flushed between runs; the plain mvLMM loops once, on the
    call compared; K15 and torch.einsum also on the card's clock alone,
    the host's enqueue hidden behind a sleep on the card, as device_ms).
@@ -269,7 +274,8 @@ TOL = {
 # K2-K8 are held to their shared forms' tolerances, but for the float32
 # tests: at GxE's 3 covariates (1 + env + x) four columns are eliminated
 # in float32, at c = 24 twenty-five, and the shared c = 3 form already
-# reached 9.9e-6 (PERF.md)
+# reached 9.9e-6 (PERF.md) when the two summed their float32 base rows in
+# different orders (both now round float64 sums)
 TOL_LANE = {
     "wald_tail": "|p - p_plain| <= 3e-5, |beta - beta_plain| <= 1e-3 se",
     "score_tail": "|p - p_plain| <= 3e-5, |beta - beta_plain| <= 1e-3 se",
@@ -1219,6 +1225,166 @@ def _hold_mv_block(blk, record, check, amax):
     rec("mph_nr", max(l_rel, h_rel), ms, pms,
         isz * (n + X0.numel() + Y.numel() + R[:m].numel())
         + 8 * m * (4 * d * d + 1 + p2 * p2), m * n * flops)
+
+
+# K3 and K7 on seeded blocks that mix the searches' exits: (n, seed) of
+# _mixed_block, MIXED_S lanes ordered so that a block of L lanes mixes
+# them, held at lane counts 1, L - 1, L + 1 and 3L + 3
+MIXED, MIXED_S = ((60, 135), (200, 9)), 64
+# _mixed_block's rows that repeat the intercept: a singular design, on
+# which K7 NaN-poisons and K3's logf_stable (which does not poison) is the
+# log of a pivot of rounding size in the kernel and its plain version
+# alike, so K3's mixed holds leave them out
+MIXED_COLLINEAR = (5, 17, 30)
+
+
+def _mixed_block(n, seed, S=MIXED_S):
+    """A seeded shared-operand block in rotated form whose lanes mix the
+    λ searches' exits (tests/test_torch_lane_search.py builds the same):
+    eigenvalues log-uniform (three zero), a response whose variance along
+    the eigenvectors follows one of two random λ on random halves (the
+    likelihood of some lanes has two sign-change intervals, of others
+    none), genotype rows of random scales, three rows that repeat the
+    intercept (collinear: the REML search NaN-poisons).  Returns eval,
+    W (n, 1), y, X (S, n)."""
+    rng = np.random.default_rng(seed)
+    ev = np.sort(np.exp(rng.uniform(np.log(1e-3), np.log(1e3), n)))
+    ev[:3] = 0.0
+    l1, l2 = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), 2))
+    grp = rng.random(n) < 0.5
+    y = rng.normal(size=n) * np.sqrt(np.where(grp, l1 * ev + 1,
+                                              l2 * ev + 1))
+    w = rng.normal(size=n)
+    X = rng.normal(size=(S, n)) * np.exp(rng.uniform(-3, 3, (S, 1)))
+    X[list(MIXED_COLLINEAR)] = np.stack([w, 2.0 * w, -w])
+    return ev, w[:, None], y, X
+
+
+def _exit_kinds(st, lam):
+    """Each lane's exits from a plain search's stats: two or more
+    sign-change intervals, none, Newton in one step a bracket, NaN."""
+    import torch
+    iv, steps, nan = st["intervals"], st["newton_steps"], torch.isnan(lam)
+    return {"several": (iv >= 2) & ~nan, "flat": iv == 0,
+            "one_step": (steps == iv) & (iv > 0), "nan": nan}
+
+
+def _hold_mixed(check, amax):
+    """K3 (float32) and K7 (float64) on the MIXED blocks against their
+    plain versions, REML and ML, at TOL's tolerances: the lanes ordered
+    round-robin over K7's exits in either fit (every kind in each block
+    of L), then held at 1, L - 1, L + 1 and 3L + 3 of them."""
+    import torch
+    from gemma_torch.models.lmm import likelihood as lk
+    from gemma_torch.models.lmm import optimize as opt
+    from gemma_torch.models.lmm.engine import fit_null
+    dev = torch.device("cuda")
+    fine = opt.fine_grid(1e-5, 1e5, 10, opt._F32_GRID_REFINE)
+    for n, seed in MIXED:
+        ev, W, y, X = _mixed_block(n, seed)
+
+        def blk(dt, rows):
+            def t(a):
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                       device=dev)
+            return lk.build_batch_data(t(ev), t(W), t(y), t(rows), 1)
+        kinds = None
+        for reml in (True, False):
+            st = {}
+            r = opt.lambda_solve_f64_plain(blk(torch.float64, X), 1, False,
+                                           reml, 1e-5, 1e5, 10, stats=st)
+            kf = _exit_kinds(st, r.lam)
+            kinds = kf if kinds is None else {k: kinds[k] | kf[k]
+                                              for k in kinds}
+        queues = [[int(i) for i in torch.nonzero(m).flatten()]
+                  for m in kinds.values()]
+        order, seen = [], set()
+        while any(queues):
+            for q in queues:
+                while q and q[0] in seen:
+                    q.pop(0)
+                if q:
+                    seen.add(q[0])
+                    order.append(q.pop(0))
+        order += [i for i in range(X.shape[0]) if i not in seen]
+        if not all(bool(m.any()) for m in kinds.values()):
+            raise RuntimeError(f"mixed block n={n} seed={seed} lacks an "
+                               f"exit: { {k: int(m.sum()) for k, m in kinds.items()} }")
+        for dt, name, L in ((torch.float32, "lambda_solve", 8),
+                            (torch.float64, "lambda_solve_f64", 4)):
+            for count in (1, L - 1, L + 1, 3 * L + 3):
+                data = blk(dt, X[order[:count]])
+                nf = fit_null(data.eval, data.UtWy[:, :1], data.UtWy[:, 1],
+                              float(ev.mean()), 1)
+                for reml in (True, False):
+                    st = {}
+                    if dt == torch.float32:
+                        d1f = lk.dev1_grid(fine, data, 1, False, reml)
+                        args = (d1f, fine, data, 1, False, reml, 1e-5, 1e5,
+                                10, False)
+                        r_k = opt.lambda_solve_cuda(*args)
+                        r_p = opt.lambda_solve_plain(*args, stats=st)
+                    else:
+                        args = (data, 1, False, reml, 1e-5, 1e5, 10)
+                        r_k = opt.lambda_solve_f64_cuda(*args)
+                        r_p = opt.lambda_solve_f64_plain(*args, stats=st)
+                    if reml:
+                        pk, pp = (lk.wald_pvalues_plain(q.lam, data, 1)[2]
+                                  for q in (r_k, r_p))
+                    else:
+                        pk, pp = (lk.lrt_pvalues_plain(
+                            q.lam, q.logf, data, 1, nf.l_mle,
+                            nf.logl_mle)[1] for q in (r_k, r_p))
+                    # K3 on the regular designs (MIXED_COLLINEAR)
+                    keep = torch.tensor(
+                        [dt == torch.float64 or order[j] not in
+                         MIXED_COLLINEAR for j in range(count)], device=dev)
+                    pk, pp = pk[keep], pp[keep]
+                    err = amax(pk, pp)
+                    logf_rel = float(((r_k.logf.double() - r_p.logf.double())
+                                      .abs() / r_p.logf.double().abs())[keep]
+                                     .nan_to_num(0.0).max())
+                    nan_diff = int((torch.isnan(r_k.lam)
+                                    != torch.isnan(r_p.lam)).sum())
+                    same_finite = not bool((torch.isfinite(pk)
+                                            != torch.isfinite(pp)).any())
+                    if dt == torch.float32:
+                        ok = err <= 1e-3 and logf_rel <= 1e-4 and same_finite
+                    else:
+                        ok = err <= 1e-6 and logf_rel <= 1e-9 \
+                            and nan_diff <= 1e-3 * count
+                    held = _exit_kinds(st, r_p.lam)
+                    check(name, ok, {
+                        "block": "mixed", "n": n, "seed": seed,
+                        "fit": "reml" if reml else "ml", "S": count,
+                        "lanes_held": int(keep.sum()),
+                        "lanes_a_block": L, "max_abs_err": err,
+                        "logf_max_rel": logf_rel, "nan_lanes_differ": nan_diff,
+                        "exits": {k: int(m.sum()) for k, m in held.items()},
+                        "evals": int(st["evals"].sum())})
+
+
+def _hold_search_layout(kernels, check):
+    """The Python mirror of K3's and K7's launch layout
+    (optimize.search_geometry) against the kernels' own size functions,
+    every form at three n."""
+    from gemma_torch.models.lmm import optimize as opt
+    bad = []
+    for n in (60, 1940, 20000):
+        for c in (0, 1, 3, 16, 24, 32, 33, 40, 64):
+            for wide, pl in ((0, 0), (1, 1), (0, 1)):
+                a = kernels.LAMBDA_SOLVE.query("smem_bytes", c, n, wide, pl)
+                b = opt.search_geometry(c, n, False, bool(wide), bool(pl))
+                if a != b["bytes"]:
+                    bad.append(("lambda_solve", n, c, wide, pl, a, b["bytes"]))
+            for pl in (0, 1):
+                a = kernels.LAMBDA_SOLVE_F64.query("smem_bytes", c, n, pl)
+                b = opt.search_geometry(c, n, True, False, bool(pl))
+                if a != b["bytes"]:
+                    bad.append(("lambda_solve_f64", n, c, pl, a, b["bytes"]))
+    for name in ("lambda_solve", "lambda_solve_f64"):
+        check(name, not bad, {"layout_mirror_equal": not bad,
+                              "differ": bad[:4]})
 
 
 def _split_equal(kernels, kern, lane_bytes, fn, args, whole):
@@ -2901,8 +3067,11 @@ def main():
                     lk.per_lane(data))
             r_k = opt.lambda_solve_cuda(*args)
             # the plain search takes seconds: timed (REML only) on the
-            # call that is compared
-            r_p, pms = _timed(lambda: opt.lambda_solve_plain(*args))
+            # call that is compared; it counts each lane's evaluations
+            st = {}
+            r_p, pms = _timed(lambda: opt.lambda_solve_plain(*args,
+                                                             stats=st))
+            evals = int(st["evals"].sum())
             lam_k[tag] = r_k
             if reml:
                 pk = lk.wald_pvalues_plain(r_k.lam, data, nc)[2]
@@ -2922,7 +3091,17 @@ def main():
                   err <= 1e-3 and logf_rel <= 1e-4 and same_finite,
                   {"max_abs_err": err, "logf_max_rel": logf_rel,
                    "same_finite": same_finite, "block": label, "fit": tag,
-                   "S": S_, "ms": ms, "plain_ms": pms})
+                   "S": S_, "ms": ms, "plain_ms": pms, "evals": evals,
+                   "ms_per_eval": ms / evals})
+            if form == "c40":
+                # the GT_DYN form split into launches of three lanes
+                kern = kernels.LAMBDA_SOLVE
+                added, same = _split_equal(
+                    kernels, kern, kern.lane_bytes(nc, int(lk.per_lane(data))),
+                    opt.lambda_solve_cuda, args, (r_k.lam, r_k.logf))
+                check("lambda_solve", same and added > 0,
+                      {"block": label, "fit": tag, "S": S_,
+                       "split_launches_added": added, "split_equal": same})
             if rec and reml:
                 # work this run's data needs, at least: per lane one dev12
                 # at each bracket's start and one Newton step, logf_stable
@@ -2935,7 +3114,8 @@ def main():
                             + (n_br + 2 * S_) * (2 * q_logf + 2 * C1 + 8))
                 record("lambda_solve", err, ms, pms,
                        opb + 4 * (G * S_ + G + 2 * S_), nops,
-                       launches=main_path["lambda_solve"], form=form)
+                       launches=main_path["lambda_solve"], form=form,
+                       extra={"evals": evals, "ms_per_eval": ms / evals})
 
         # K4 (at the kernel's REML λ) and K5 (at l_score)
         tails = (("wald_tail", lk.wald_pvalues_cuda, lk.wald_pvalues_plain,
@@ -3005,7 +3185,10 @@ def main():
             tag = "reml" if reml else "ml"
             args = (data, nc, False, reml, 1e-5, 1e5, 10)
             r_k = opt.lambda_solve_f64_cuda(*args)
-            r_p, pms = _timed(lambda: opt.lambda_solve_f64_plain(*args))
+            st = {}
+            r_p, pms = _timed(lambda: opt.lambda_solve_f64_plain(*args,
+                                                                 stats=st))
+            evals = int(st["evals"].sum())
             fits[tag] = r_k
             pk = lk.wald_pvalues_plain(r_k.lam, data, nc)[2]
             pp = lk.wald_pvalues_plain(r_p.lam, data, nc)[2]
@@ -3022,7 +3205,16 @@ def main():
                   {"max_abs_err": err, "logf_max_rel": logf_rel,
                    "nan_lanes": int(torch.isnan(r_p.lam).sum()),
                    "nan_lanes_differ": nan_diff, "block": label, "fit": tag,
-                   "S": S_, "ms": ms, "plain_ms": pms})
+                   "S": S_, "ms": ms, "plain_ms": pms, "evals": evals,
+                   "ms_per_eval": ms / evals})
+            if form == "c40":
+                kern = kernels.LAMBDA_SOLVE_F64
+                added, same = _split_equal(
+                    kernels, kern, kern.lane_bytes(nc),
+                    opt.lambda_solve_f64_cuda, args, (r_k.lam, r_k.logf))
+                check("lambda_solve_f64", same and added > 0,
+                      {"block": label, "fit": tag, "S": S_,
+                       "split_launches_added": added, "split_equal": same})
             if rec and reml:
                 # at least: the n_region + 1 scan points, and per bracket
                 # one Brent step, two Newton steps and the logf at the
@@ -3038,7 +3230,8 @@ def main():
                                 + n_br * (q2 + 2 * q3 + q1) + 2 * S_ * q1)
                 record("lambda_solve_f64", err, ms, pms,
                        opb + 8 * (S_ * C1 + 2 * S_), nops,
-                       peak=PEAK_F64_PER_S, launches=counts, form=form)
+                       peak=PEAK_F64_PER_S, launches=counts, form=form,
+                       extra={"evals": evals, "ms_per_eval": ms / evals})
         tails = (("wald_tail_f64", lk.wald_pvalues_cuda,
                   lk.wald_pvalues_plain, fits["reml"].lam),
                  ("score_tail_f64", lk.score_pvalues_cuda,
@@ -3215,6 +3408,8 @@ def main():
                    if c40 else counts_e["lm"],
                    form="c24" if c24 else "c40" if c40 else "gene" if gene
                    else None)
+    _hold_search_layout(kernels, check)
+    _hold_mixed(check, amax)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)
     _hold_crt(mv_ops, counts_f, record, check)
     _hold_bslmm(counts_g, record, check)

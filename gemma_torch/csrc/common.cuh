@@ -38,6 +38,56 @@
     return cudaGetErrorString((cudaError_t)e);                         \
   }
 
+// Phase clocks of K3 and K7 (scripts/k3_k7_phase_profile.py builds
+// them with -DGT_PROFILE): thread 0 of a block, which waits at every
+// barrier, adds the clock64() cycles since its last mark to a phase's
+// counter; GT_PROF_COUNT adds to a counter from thread 0, GT_PROF_ADD
+// from the calling thread.  Without GT_PROFILE the marks compile to
+// nothing.
+#define GT_PH_SUMS 0     // the sums over n
+#define GT_PH_RECUR 1    // the Pab recurrences
+#define GT_PH_FACTOR 2   // the Gram's factor and solves
+#define GT_PH_CONTROL 3  // Newton, Brent, the interval walk, the rest
+#define GT_PC_LANES 8    // lanes the launch searched
+#define GT_PC_DEV 9      // dev1 / dev12 evaluations
+#define GT_PC_LOGF 10    // logf evaluations (logdet0 included)
+#define GT_PC_STEPS 11   // block steps (evaluation rounds of a block)
+#ifdef GT_PROFILE
+__device__ unsigned long long gt_prof[16];
+__device__ __forceinline__ long long& gt_prof_last() {
+  __shared__ long long t;
+  return t;
+}
+#define GT_PROF_START()                                     \
+  do {                                                      \
+    if (threadIdx.x == 0) gt_prof_last() = clock64();       \
+  } while (0)
+#define GT_PROF(k)                                                     \
+  do {                                                                 \
+    if (threadIdx.x == 0) {                                            \
+      const long long now_ = clock64();                                \
+      atomicAdd(&gt_prof[k], (unsigned long long)(now_ - gt_prof_last())); \
+      gt_prof_last() = now_;                                           \
+    }                                                                  \
+  } while (0)
+#define GT_PROF_COUNT(k, v)                                            \
+  do {                                                                 \
+    if (threadIdx.x == 0) atomicAdd(&gt_prof[k], (unsigned long long)(v)); \
+  } while (0)
+#define GT_PROF_ADD(k, v) atomicAdd(&gt_prof[k], (unsigned long long)(v))
+extern "C" int gt_prof_read(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, gt_prof, sizeof(gt_prof));
+  unsigned long long z[16] = {0};
+  cudaMemcpyToSymbol(gt_prof, z, sizeof(z));
+  return (int)cudaGetLastError();
+}
+#else
+#define GT_PROF_START()
+#define GT_PROF(k)
+#define GT_PROF_COUNT(k, v)
+#define GT_PROF_ADD(k, v)
+#endif
+
 // float → the f-suffixed functions, double → the plain ones
 __device__ __forceinline__ float gt_log(float v) { return logf(v); }
 __device__ __forceinline__ double gt_log(double v) { return log(v); }
@@ -115,7 +165,7 @@ struct PabTables {
   const int* col;
 };
 
-__host__ __device__ inline int gt_n_index(int n_cvt) {
+__host__ __device__ constexpr int gt_n_index(int n_cvt) {
   return (n_cvt + 3) * (n_cvt + 2) / 2;
 }
 
@@ -173,21 +223,21 @@ __device__ inline void gt_block_sums(F f, int Q, int n, T* out, T* red) {
 }
 
 // One elimination step of the three recurrences on rows held in shared
-// memory, threads parallel over the flat index k.  `order` says how many
-// of (pab, ppab, pppab) are live.  Reads cur rows, writes nxt rows; the
-// caller swaps and synchronises.
+// memory, threads k0, k0 + ks, ... over the flat index k.  `order` says
+// how many of (pab, ppab, pppab) are live.  Reads cur rows, writes nxt
+// rows; the caller swaps and synchronises.
 template <typename T>
 __device__ inline void gt_pab_step(const PabTables& t, int ni, int p,
                                    int order, const T* pab, const T* ppab,
                                    const T* pppab, T* npab, T* nppab,
-                                   T* npppab) {
+                                   T* npppab, int k0, int ks) {
   const int* aw = t.aw + (p - 1) * ni;
   const int* bw = t.bw + (p - 1) * ni;
   const int w = t.ww[p - 1];
   const T ps_ww = pab[w];
   const bool nz = ps_ww != T(0);
   const T safe = nz ? ps_ww : T(1);
-  for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
+  for (int k = k0; k < ni; k += ks) {
     const T ps_aw = pab[aw[k]];
     const T ps_bw = pab[bw[k]];
     npab[k] = nz ? pab[k] - ps_aw * ps_bw / safe : pab[k];
@@ -253,11 +303,11 @@ __device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
 }
 
 // Shared memory of one SNP's test rows (K4, K5), for at most MC
-// covariates.
+// covariates: the base row's sums in float64 whatever T, its rows in T.
 template <typename T, int MC>
 struct TestSmem {
-  T red[GT_WARPS * 8];
-  T q[GtDims<MC>::M + GtDims<MC>::C1 + 1];
+  double red[GT_WARPS * 8];
+  double q[GtDims<MC>::M + GtDims<MC>::C1 + 1];
   T rows[2][GtDims<MC>::NI];
 };
 
@@ -265,26 +315,26 @@ struct TestSmem {
 // (red stays in shared memory).
 template <typename T>
 struct TestSmem<T, GT_DYN> {
-  T* red;
-  T* q;
+  double* red;
+  double* q;
   T* rows[2];
 };
 
 __host__ __device__ inline long gt_test_lane_bytes(int n_cvt, int tsize) {
   const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
-  return gt_r16((M + C1 + 1) * tsize) +
+  return gt_r16((M + C1 + 1) * 8) +
          2 * gt_r16(gt_n_index(n_cvt) * (long)tsize);
 }
 
 template <typename T>
 __device__ inline TestSmem<T, GT_DYN> gt_test_view(unsigned char* lane,
                                                    int n_cvt) {
-  __shared__ T red[GT_WARPS * 8];
+  __shared__ double red[GT_WARPS * 8];
   const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
   GtCarve cv{lane};
   TestSmem<T, GT_DYN> v;
   v.red = red;
-  v.q = cv.take<T>(M + C1 + 1);
+  v.q = cv.take<double>(M + C1 + 1);
   v.rows[0] = cv.take<T>(gt_n_index(n_cvt));
   v.rows[1] = cv.take<T>(gt_n_index(n_cvt));
   return v;
@@ -300,7 +350,12 @@ struct TestRows {
 // One SNP's test rows at weight λ = l: the base row by block reduction
 // over n (hi = 1/(l·eval + 1)), then the CalcPab recurrence in shared
 // memory, threads parallel over the flat index.  Every thread of the
-// block calls it and gets the same values.
+// block calls it and gets the same values.  The terms are T's (hi and
+// hi·x rounded to T), their products and sums float64, each sum rounded
+// once to T: so the float32 base row is the correctly rounded one that
+// the plain version (likelihood._base_row) also forms, and the two
+// differ by the recurrence's rounding alone, not by two float32
+// summation orders.
 template <typename T, int MC>
 __device__ inline TestRows<T> gt_test_rows(T l, const T* eval, const T* UtWy,
                                            const T* wy, const T* x,
@@ -308,22 +363,22 @@ __device__ inline TestRows<T> gt_test_rows(T l, const T* eval, const T* UtWy,
                                            int M, int xx_pos, int xy_pos,
                                            TestSmem<T, MC>& sm) {
   const int C1 = n_cvt + 1;
-  auto f = [&](int qi, int i) -> T {
+  auto f = [&](int qi, int i) -> double {
     const T hi = T(1) / (l * eval[i] + T(1));
-    if (qi < M) return hi * wy[(long)i * M + qi];
+    if (qi < M) return (double)hi * (double)wy[(long)i * M + qi];
     qi -= M;
     const T wx = hi * x[i];
-    if (qi < C1) return wx * UtWy[(long)i * C1 + qi];
-    return wx * x[i];
+    if (qi < C1) return (double)wx * (double)UtWy[(long)i * C1 + qi];
+    return (double)wx * (double)x[i];
   };
   gt_block_sums(f, M + C1 + 1, n, sm.q, sm.red);
   const PabTables t = gt_tables(tab, n_cvt);
   const int ni = gt_n_index(n_cvt);
   for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
     const int kind = t.kind[k], col = t.col[k];
-    sm.rows[0][k] = kind == 0   ? sm.q[col]
-                    : kind == 1 ? sm.q[M + C1]
-                                : sm.q[M + col];
+    sm.rows[0][k] = (T)(kind == 0   ? sm.q[col]
+                        : kind == 1 ? sm.q[M + C1]
+                                    : sm.q[M + col]);
   }
   __syncthreads();
   TestRows<T> r;
@@ -336,7 +391,8 @@ __device__ inline TestRows<T> gt_test_rows(T l, const T* eval, const T* UtWy,
       r.p_xy = sm.rows[cur][xy_pos];
     }
     gt_pab_step<T>(t, ni, p, 1, sm.rows[cur], nullptr, nullptr,
-                   sm.rows[1 - cur], nullptr, nullptr);
+                   sm.rows[1 - cur], nullptr, nullptr, threadIdx.x,
+                   GT_THREADS);
     __syncthreads();
     cur = 1 - cur;
   }

@@ -49,18 +49,13 @@ lrt_recompute_kernel(const float* __restrict__ lam,
   SolveCtx<float, double> c;
   c.eval = eval;
   c.UtWy = UtWy + (long)s * ustride;
-  c.wy = nullptr;
   c.x = Utx + (long)s * xstride;
-  c.t = PabTables{};
   c.n_cvt = n_cvt;
   c.n = n;
-  c.M = 0;
-  c.ni = gt_n_index(n_cvt);
   c.calc_null = calc_null;
-  c.reml = 0;
   c.logf_const = logf_const;
   gt_gram_pairs(sm, calc_null ? n_cvt : n_cvt + 1);
-  const double l1 = gt_logf_stable(c, sm, (double)lam[s], 0.0);
+  const double l1 = gt_logf_stable(c, sm, (double)lam[s]);
   if (threadIdx.x == 0) {
     logl_out[s] = l1;
     if (p_out != nullptr)

@@ -153,16 +153,20 @@ class Kernel:
                                f"{self._err(rc).decode()}")
         self.launches += 1
 
+    def query(self, what: str, *args: int) -> int:
+        """The kernel's C size function `<name>_<what>` at these sizes."""
+        if self._fn is None:
+            self._load()
+        fn = getattr(self._lib, f"{self.name}_{what}")
+        fn.argtypes = [_I] * len(args)
+        fn.restype = ctypes.c_long
+        return int(fn(*args))
+
     def lane_bytes(self, *args: int) -> int:
         """Bytes of scratch a lane of this kernel needs at these sizes
         (its C function `<name>_lane_bytes`); 0 where the kernel runs a
         fixed instantiation without scratch."""
-        if self._fn is None:
-            self._load()
-        fn = getattr(self._lib, f"{self.name}_lane_bytes")
-        fn.argtypes = [_I] * len(args)
-        fn.restype = ctypes.c_long
-        return int(fn(*args))
+        return self.query("lane_bytes", *args)
 
     def launch_lanes(self, device: torch.device, S: int, lane_bytes: int,
                      args) -> None:
@@ -211,7 +215,8 @@ GENO_PROLOGUE_F64 = Kernel("geno_prologue_f64", _PROLOGUE_ARGS,
                            _PROLOGUE_REPLACES, source="geno_prologue")
 # K2-K7 end in (s0, count, scratch): the lanes of the launch and, above
 # 32 covariates (GT_DYN), their scratch (launch_lanes); K8 ends in its
-# scratch
+# scratch.  K3 and K7 take before them the launch's lane counter (an
+# int32 at 0), from which their teams take the lanes
 _LANES = (_I, _I, _P)
 LAMBDA_GRID = Kernel(
     "lambda_grid",
@@ -219,8 +224,8 @@ LAMBDA_GRID = Kernel(
     "gemma_tpu/models/lmm/likelihood.py:380 dev1_grid (recurrence epilogue)")
 LAMBDA_SOLVE = Kernel(
     "lambda_solve",
-    (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     _I, _I, _D, _D, _D, _I, _D, _P, _P) + _LANES,
+    (_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+     _D, _D, _I, _D, _P, _P, _P) + _LANES,
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float32 bracket/"
     "Newton loop :307-434, _newton_batched :186, dev12 likelihood.py:441, "
     "logf_stable likelihood.py:269)")
@@ -247,8 +252,8 @@ LRT_TAIL = Kernel(
     "(the LRT difference)")
 LAMBDA_SOLVE_F64 = Kernel(
     "lambda_solve_f64",
-    (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-     _D, _D, _D, _D, _I, _I, _D, _P, _P) + _LANES,
+    (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D,
+     _D, _I, _I, _D, _P, _P, _P) + _LANES,
     "gemma_tpu/models/lmm/optimize.py:247 calc_lambda (float64 branch: "
     "per-point dev1 scan :300-302, _brent_batched :66, _newton_batched "
     ":186, logf likelihood.py:237)")

@@ -165,13 +165,16 @@ def _base_row(w, data: LmmBatchData, n_cvt: int):
     """Row 0 of the Pab recurrence for weight vector(s) w: (..., S, n).
 
     Returns (..., S, n_index): weighted inner products of every column
-    pair, laid out in GEMMA's GetabIndex order.
+    pair, laid out in GEMMA's GetabIndex order.  The terms are w's type
+    (w and w·x as given), their products and sums float64, each sum
+    rounded once to w's type, as K4 and K5 form them.
     """
-    shared = _lane_mm(w, data.wy_prod)                 # (..., S, m_wy)
+    f64 = torch.float64
     wx = w * data.Utx                                  # (..., S, n)
-    xcross = _lane_mm(wx, data.UtWy)                   # (..., S, c+1)
-    xx = torch.sum(wx * data.Utx, dim=-1)              # (..., S)
-    return _assemble(n_cvt, shared, xx, xcross)
+    shared = _lane_mm(w.to(f64), data.wy_prod.to(f64))  # (..., S, m_wy)
+    xcross = _lane_mm(wx.to(f64), data.UtWy.to(f64))   # (..., S, c+1)
+    xx = torch.sum(wx.to(f64) * data.Utx.to(f64), dim=-1)   # (..., S)
+    return _assemble(n_cvt, shared, xx, xcross).to(w.dtype)
 
 
 def _base_rows_multi(hi, data: LmmBatchData, n_cvt: int, order: int):
