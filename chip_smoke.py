@@ -738,7 +738,8 @@ def _run(argv, device, keep=False):
     if keep:
         RESULTS[tag] = res
     elif isinstance(res, dict) and "em_iters" in res.get("stats", {}):
-        RESULTS[tag] = {k: res[k] for k in ("stats", "snp_indices")}
+        RESULTS[tag] = {k: res[k] for k in ("stats", "snp_indices",
+                                            "null_seconds")}
     return time.time() - t0
 
 
@@ -1109,9 +1110,9 @@ def _hold_mv_block(blk, record, check, amax):
         tol = dict(TOL_D10)
     base = {"block": form or "snp", "S": S, "n": n, "d": d, "c": c}
 
-    def rec(name, err, ms, pms, nbytes, nops):
+    def rec(name, err, ms, pms, nbytes, nops, extra=None):
         record(name + sfx, err, ms, pms, nbytes, nops, peak=PEAK_F64_PER_S,
-               launches=cnt, form=form, tol=tol.get(name))
+               launches=cnt, form=form, tol=tol.get(name), extra=extra)
 
     def chk(name, ok, line):
         if name in tol:
@@ -1169,12 +1170,17 @@ def _hold_mv_block(blk, record, check, amax):
         ok = cap_err <= 1e-6 and err_all <= 1e-3
     ms = time_ms(lambda: mvc.mph_em_cuda(*a), 3)
     its = float((kk.iters.double() + 1).sum())
-    chk("mph_em", ok, {"capped_max_rel_err": cap_err, **wline,
-                       "mean_iters": its / S, "ms": ms, "plain_ms": pms})
+    # the lanes' iterations and the time a lane-iteration takes; the null
+    # fit of the path that runs this form, timed by its own phase clock
+    work = {"mean_iters": its / S, "us_per_lane_iter": ms * 1e3 / its}
+    if blk.get("null_s") is not None:
+        work["null_fit_s"] = blk["null_s"]
+    chk("mph_em", ok, {"capped_max_rel_err": cap_err, **wline, **work,
+                       "ms": ms, "plain_ms": pms})
     flops = sum(_mv_sums(d, c, k)[1] for k in ("core", "em_a_reml",
                                                "em_b_reml"))
     rec("mph_em", max(err, cap_err), ms, pms,
-        in_bytes + 8 * S * (2 * d * d + d * c + 2), its * n * flops)
+        in_bytes + 8 * S * (2 * d * d + d * c + 2), its * n * flops, work)
     # K10 at the converged (Vg, Ve)
     a = (ev, X0, Y, R, kk.Vg, kk.Ve)
     ck, cq = mvc.mph_calc_p_cuda(*a), mvc.mph_calc_p_plain(*a)
@@ -1202,10 +1208,21 @@ def _hold_mv_block(blk, record, check, amax):
     a = (True, 10, 1e-3, ev, X0, Y, R[:m].contiguous(), kk.Vg[:m],
          kk.Ve[:m])
     nk = mvc.mph_nr_cuda(*a)
-    nq, pms = _timed(lambda: mvc.mph_nr_plain(*a))
+    st = {}
+    nq, pms = _timed(lambda: mvc.mph_nr_plain(*a, stats=st))
     l_rel, h_rel = _mrel(nk[2], nq[2]), _mrel(nk[3], nq[3])
     ms = time_ms(lambda: mvc.mph_nr_cuda(*a), 3)
-    line = {"S": m, "logl_max_rel_err": l_rel, "Hvar_max_rel_err": h_rel}
+    # the lanes' Newton iterations and evaluations as the plain version
+    # counts them on the same lanes (K11 does not report its own), and
+    # the kernel's time over those
+    its, n_lik, n_der = (float(st[k].sum()) for k in ("iters", "lik_evals",
+                                                       "der_evals"))
+    work = {"plain_mean_iters": its / m,
+            "us_per_plain_lane_iter": ms * 1e3 / its,
+            "plain_lik_evals_per_lane": n_lik / m,
+            "plain_der_evals_per_lane": n_der / m}
+    line = {"S": m, "logl_max_rel_err": l_rel, "Hvar_max_rel_err": h_rel,
+            **work}
     if wit:
         nc = mvc.mph_nr_plain(*_cpu(a))
         line["cpu_logl_max_rel_err"] = _mrel(nc[2].to(ev.device), nq[2])
@@ -1219,12 +1236,15 @@ def _hold_mv_block(blk, record, check, amax):
     else:
         ok = l_rel <= 1e-10 and h_rel <= 1e-8
     chk("mph_nr", ok, {**line, "ms": ms, "plain_ms": pms})
-    # at least one likelihood and one derivative evaluation a lane
-    flops = sum(_mv_sums(d, c, k)[1] for k in ("core", "core", "nr_a",
-                                               "nr_b"))
+    # the evaluations the plain version made on these lanes: a
+    # likelihood pass each, two derivative passes each, and X X' once a
+    # lane
+    nops = n * (n_lik * _mv_sums(d, c, "core")[1]
+                + n_der * sum(_mv_sums(d, c, k)[1] for k in ("nr_a", "nr_b"))
+                + m * c * (c + 1))
     rec("mph_nr", max(l_rel, h_rel), ms, pms,
         isz * (n + X0.numel() + Y.numel() + R[:m].numel())
-        + 8 * m * (4 * d * d + 1 + p2 * p2), m * n * flops)
+        + 8 * m * (4 * d * d + 1 + p2 * p2), nops, work)
 
 
 # K3 and K7 on seeded blocks that mix the searches' exits: (n, seed) of
@@ -1387,6 +1407,56 @@ def _hold_search_layout(kernels, check):
                               "differ": bad[:4]})
 
 
+def _hold_mv_geometry(kernels, check):
+    """K9-K11's launch geometry and lane scratch as the kernels' own
+    <name>_geometry and <name>_lane_bytes give them, d = 2..10, c =
+    2..14, both precisions, lane counts from one to the protocol block's:
+    W warps a team from the lane count (16 at 128 lanes and fewer, 4 above
+    256), at most two teams a block, NB a multiple of 32 up to 32 W, the
+    block's shared bytes within the card's 227 KB; the protocol block
+    four warps a lane, two lanes a block, its operands in shared memory;
+    and a budget of three lanes' scratch splitting a block into launches
+    that take every lane once."""
+    from gemma_torch.kernels import lane_ranges
+    bad = []
+    for pair in ((kernels.MPH_EM, kernels.MPH_EM_F64),
+                 (kernels.MPH_NR, kernels.MPH_NR_F64),
+                 (kernels.MPH_CALC_P, kernels.MPH_CALC_P_F64)):
+        for k in pair:
+            for d in range(2, 11):
+                for c in range(2, 15):
+                    lb = k.lane_bytes(d, c)
+                    for S in ((1, 3, 16, 64) if lb else ()):
+                        rs = lane_ranges(S, lb, 3 * lb)
+                        if ([i for a, e in rs for i in range(a, e)]
+                                != list(range(S))
+                                or any(e - a > 3 for a, e in rs)):
+                            bad.append((k.name, d, c, S, "lane_ranges"))
+                    if lb < 0:
+                        bad.append((k.name, d, c, "lane_bytes", lb))
+                    for count in (1, 3, 16, 64, 128, 129, 256, 257, 1024,
+                                  10759):
+                        W, L, NB, common, team, nbytes = (
+                            k.query("geometry", count, MV_N, d, c - 1, 1, w)
+                            for w in range(6))
+                        ok = (W in (4, 8, 16) and (W == 16) == (count <= 128)
+                              and (W == 4) == (count > 256)
+                              and 1 <= L and L * W <= max(W, 8)
+                              and NB % 32 == 0 and 32 <= NB <= 32 * W
+                              and common in (0, 1)
+                              and L * team * 8 <= nbytes <= 227 * 1024)
+                        if not ok:
+                            bad.append((k.name, d, c, count,
+                                        (W, L, NB, common, team, nbytes)))
+            g = [k.query("geometry", 10759, MV_N, 2, 1, 1, w)
+                 for w in range(4)]
+            if (g[0], g[1], g[3]) != (4, 2, 1):
+                bad.append((k.name, "protocol", g))
+    for name in ("mph_em", "mph_nr", "mph_calc_p"):
+        check(name, not bad, {"geometry_invariants": not bad,
+                              "violations": bad[:4]})
+
+
 def _split_equal(kernels, kern, lane_bytes, fn, args, whole):
     """(launches that a split added, equal): fn(*args) with the scratch
     budget at three lanes of lane_bytes, so that `kern` splits its lanes
@@ -1427,9 +1497,14 @@ def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
     from gemma_torch.models import mvlmm_core as mvc
     f32, f64 = torch.float32, torch.float64
     blocks = []
-    for dt, sfx, cnt, cnt_x in (
-            (f32, "", counts_f["lmm1"], counts_f["gxe"]),
-            (f64, "_f64", counts_f["lmm4_f64"], counts_f["gxe_f64"])):
+    def null_s(tag):
+        """The null fit's seconds in the path run `tag` (its phase clock)."""
+        return RESULTS[tag].get("null_seconds")
+
+    for dt, sfx, cnt, cnt_x, tag, tag_x in (
+            (f32, "", counts_f["lmm1"], counts_f["gxe"], "M1w", "MX4"),
+            (f64, "_f64", counts_f["lmm4_f64"], counts_f["gxe_f64"], "M4d",
+             "MX4d")):
         o = mv_ops[dt]
         nul, nx = o["null"], o["null_x"]
         common = dict(ev=o["ev"], Y=o["Y"], sfx=sfx, tight=dt == f64)
@@ -1437,13 +1512,13 @@ def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
         blocks.append(dict(
             common, X0=o["X0"], R=o["R1"], Vg=nul.Vg_start[None],
             Ve=nul.Ve_start[None], B=nul.B_start[None], form=None,
-            launches=cnt, staged=True,
+            launches=cnt, staged=True, null_s=null_s(tag),
             cap=1000 if dt == f64 else mvc.nr_switch_point(1000)))
         # the GxE H1 fit: REML from the null to convergence
         blocks.append(dict(
             common, X0=o["X0e"], R=o["R2"], Vg=nx.Vg_start[None],
             Ve=nx.Ve_start[None], form="gxe", launches=cnt_x,
-            staged=False, cap=1000,
+            staged=False, cap=1000, null_s=null_s(tag_x),
             B=torch.cat([nx.B_start, nx.B_start.new_zeros((2, 1))],
                         1)[None]))
     o = mv_ops["d5"]
@@ -1451,7 +1526,8 @@ def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
         ev=o["ev"], Y=o["Y"], X0=o["X0"], R=o["R1"],
         Vg=o["null"].Vg_start[None], Ve=o["null"].Ve_start[None],
         B=o["null"].B_start[None], form="d5", launches=counts_f["d5"],
-        sfx="", tight=True, staged=True, cap=mvc.nr_switch_point(1000)))
+        sfx="", tight=True, staged=True, cap=mvc.nr_switch_point(1000),
+        null_s=null_s("M5")))
     for blk in blocks:
         _hold_mv_block(blk, record, check, amax)
 
@@ -2631,7 +2707,8 @@ def _hold_wide(ops, counts_k, record, check, amax):
                         Vg=nul.Vg_start[None], Ve=nul.Ve_start[None],
                         B=nul.B_start[None], form="d10",
                         launches=counts_k["w_d10"], sfx="_f64", tight=True,
-                        staged=True, cap=1000, witness=True),
+                        staged=True, cap=1000, witness=True,
+                        null_s=RESULTS["W10"]["null_seconds"]),
                    record, check, amax)
     for dt, sfx in ((f32, ""), (f64, "_f64")):
         o = ops[("gxe14", dt)]
@@ -3409,6 +3486,7 @@ def main():
                    form="c24" if c24 else "c40" if c40 else "gene" if gene
                    else None)
     _hold_search_layout(kernels, check)
+    _hold_mv_geometry(kernels, check)
     _hold_mixed(check, amax)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)
     _hold_crt(mv_ops, counts_f, record, check)

@@ -5,31 +5,31 @@
 // and the straggler compaction of its staged driver
 //   gemma_tpu/models/mvlmm.py:173 _em_staged.
 //
-// One thread block per lane.  Each iteration: EigenProc on thread 0, one
+// A team of warps a lane (mvlmm_lane.cuh: four warps when the launch has
+// more than 256 lanes, sixteen at 128 and fewer), the teams taking their
+// lanes from the launch's counter.  Each iteration: EigenProc on the team, one
 // pass over n for the d Gram blocks Σ w x x', xHiy, y'H^-1y and log|H|
-// (and, in ML, GEMMA's residual sums with the carried UltVehiB), the
-// log-likelihood and the exit test on thread 0, a second pass for the
-// M-step's outer products once B is known (REML: E = w (z - B x) and the
-// trace terms x'Qi x; ML: E with this iteration's B), then CalcSigma and
-// UpdateV on thread 0.  A lane stops when |Δlogl| < prec (tested from t =
-// 1, and with `staged` not at the reference's burst starts 32, 96, 224,
-// ...), when its logl goes non-finite (Vg, Ve, B NaN-poisoned, as the
-// reference), or at max_iter; it writes its iteration count.  So no lane
-// waits for another and nothing is compacted.  In ML the eigenvectors of
-// Ve^-1/2 Vg Ve^-1/2 keep the previous iteration's signs (d >= 3), since
-// GEMMA's UltVehiBX is carried in the previous basis.
+// (and, in ML, GEMMA's residual sums with the carried UltVehiB), GLS (the
+// d inverses one a thread), the log-likelihood and the exit test, a
+// second pass for the M-step's outer products once B is known (REML: E =
+// w (z - B x) and the trace terms x'Qi x; ML: E with this iteration's
+// B), then CalcSigma and UpdateV entry by entry.  A lane stops when
+// |Δlogl| < prec (tested from t = 1, and with `staged` not at the
+// reference's burst starts 32, 96, 224, ...), when its logl goes
+// non-finite (Vg, Ve, B NaN-poisoned, as the reference), or at max_iter;
+// it writes its iteration count.  So no lane waits for another and
+// nothing is compacted.  In ML the eigenvectors of Ve^-1/2 Vg Ve^-1/2
+// keep the previous iteration's signs (d >= 3), since GEMMA's UltVehiBX
+// is carried in the previous basis.
 //
 // Bound: operations — per iteration and lane two float64 passes of
-// O(n d (c² + d)) multiply-adds; the lane's rows are read once per pass
-// (from L2 after the first).  Staging a lane's rows in shared memory is
-// left for a later change.  Beyond d = 8 or 10 design rows the
-// run-time-sized form (MD = MC = 0, mvlmm_lane.cuh) runs on lanes [s0,
-// s0 + count), its state, sums, XXi, Ulp, B and thread 0's frame in
-// `scratch` (mph_em_lane_bytes a lane).
+// O(n d (c² + d)) multiply-adds.  The passes' sums run on every thread of
+// the team from registers, the individuals' values staged once a group
+// (a warp) or a round of W groups (a larger team); the common operands
+// are read from shared memory where they fit.  Beyond d = 8 or 10 design
+// rows the run-time-sized form (MD = MC = 0) keeps a lane's state, sums,
+// XXi, Ulp, B and temporaries in `scratch` (mph_em_lane_bytes a lane).
 #include "mvlmm_lane.cuh"
-
-#define MV_ACC_A 672   // pass A at d = 8, c = 10 (ML): 668 sums
-#define MV_ACC_B 96    // pass B at d = 8 (REML): 88 sums
 
 // the EM's passes: PX (X X'), PA (the likelihood and, in ML, GEMMA's
 // residual sums) and PB (the M-step's outer products); returns the
@@ -63,10 +63,7 @@ __host__ __device__ inline EmFam mv_em_passes(MvPass& PX, MvPass& PA,
   return F;
 }
 
-// doubles of a lane's scratch in the run-time-sized form: the state, the
-// largest pass A and B (ML's A, REML's B; PX fits in A), XXi, Ulp, B,
-// thread 0's frame (U and E beside the lane code's) and, where they
-// outgrow MV_ST_SMEM, the staged rows
+// the largest pass A and B (ML's A, REML's B; PX fits in A)
 __host__ __device__ inline long mv_em_acc_a(int d, int c) {
   MvPass PX, PA, PB;
   mv_em_passes(PX, PA, PB, d, c, 0);
@@ -78,10 +75,13 @@ __host__ __device__ inline long mv_em_acc_b(int d, int c) {
   mv_em_passes(PX, PA, PB, d, c, 1);
   return mv_pass_size(PB);
 }
-__host__ __device__ inline long mv_em_scratch(int d, int c) {
+
+// doubles of a lane's state: the matrices, the two passes' sums, XXi,
+// Ulp, B and the team's temporaries; in the team's shared memory (fixed
+// instantiation) or the lane's scratch (run-time-sized form)
+__host__ __device__ inline long mv_em_state(int d, int c) {
   return mv_state_len(d, c) + mv_em_acc_a(d, c) + mv_em_acc_b(d, c) +
-         (long)c * c + (long)d * d + (long)d * c + mv_frame_len(d, c) +
-         2L * d * d + (mv_st_smem(d, c) ? 0 : (long)mv_nrow(d, c) * MV_CH);
+         (long)c * c + (long)d * d + (long)d * c + mv_tframe_len(d, c);
 }
 
 // the first iteration of each of the reference's EM bursts (32, then
@@ -96,7 +96,7 @@ __device__ inline bool mv_burst_start(int t) {
 }
 
 template <typename T, int MD, int MC>
-__global__ void __launch_bounds__(MV_THREADS)
+__global__ void __launch_bounds__(32 * MV_MAX_W, 1)
 mph_em_kernel(int reml, int staged, int max_iter, double prec, int n, int d,
               int c0, int r, const T* __restrict__ eval,
               const T* __restrict__ X0, const T* __restrict__ Y,
@@ -104,162 +104,209 @@ mph_em_kernel(int reml, int staged, int max_iter, double prec, int n, int d,
               const double* __restrict__ Ve0, int vstride,
               const double* __restrict__ B0, int bstride, double* Vg_out,
               double* Ve_out, double* B_out, double* logl_out, int* done_out,
-              int* iters_out, int s0, double* scratch) {
-  __shared__ MvState<MD, MC> s;
-  __shared__ double logl_const;
-  const int lane = s0 + blockIdx.x, tid = threadIdx.x;
-  const MvLane<T> L = mv_lane(eval, X0, Y, R, n, d, c0, r, lane);
-  const int c = L.c, dd = d * d;
+              int* iters_out, MvGeom geo, int* ctr, int s0, int count,
+              double* scratch) {
+  extern __shared__ __align__(16) double mv_smem[];
+  const int c = c0 + r, dd = d * d, dc = d * c;
+  // the block's copy of the common operands
+  const T *ev = eval, *x0 = X0, *y = Y;
+  long cb = 0;
+  if (geo.common) {
+    T* cm = reinterpret_cast<T*>(mv_smem);
+    const long m = (long)(1 + c0 + d) * n;
+    for (long i = threadIdx.x; i < m; i += blockDim.x)
+      cm[i] = i < n ? eval[i]
+                    : i < (long)(1 + c0) * n ? X0[i - n] : Y[i - (long)(1 + c0) * n];
+    __syncthreads();
+    ev = cm;
+    x0 = cm + n;
+    y = cm + (long)(1 + c0) * n;
+    cb = mv_common_bytes(n, d, c0, sizeof(T)) / 8;
+  }
+  MvTeam tm;
+  tm.W = geo.W;
+  tm.size = 32 * geo.W;
+  tm.id = threadIdx.x / tm.size;
+  tm.rank = threadIdx.x % tm.size;
+  tm.warp = tm.rank / 32;
+  tm.lane = tm.rank % 32;
+  tm.whole = geo.L == 1;
+  const int nrow = mv_nrow(d, c);
+  double* base = mv_smem + cb + (long)tm.id * geo.team;
+  double* buf = base;
+  double* cbase = buf + mv_team_buf(nrow, geo.NB, geo.W);
+  MvCtl<MvState<0, 0>>& ctl =
+      *reinterpret_cast<MvCtl<MvState<0, 0>>*>(cbase);
+  MvState<0, 0>& s = ctl.s;
+  double* fixed = cbase + MV_CTL;
 
   MvPass PX, PA, PB;
   const EmFam F = mv_em_passes(PX, PA, PB, d, c, reml);
-  const int fSW = F.sw, fSDW = F.sdw, fS1 = F.s1, fGG = F.gg, fG0 = F.g0,
-            fG1 = F.g1, fSE = F.se, fSU = F.su;
+  MvProf pf;
+  pf.start(tm.leader());
 
-  double* w = nullptr;        // the lane's scratch (run-time-sized form)
-  double *accA, *accB, *XXi, *Ulp, *B;
-  double* fr = nullptr;       // thread 0's frame in it
-  double* wst = nullptr;      // the staged rows in it, if there
-  if constexpr (MD == 0) {
-    w = scratch + (long)blockIdx.x * mv_em_scratch(d, c);
-    accA = w + mv_state_len(d, c);
-    accB = accA + mv_em_acc_a(d, c);
-    XXi = accB + mv_em_acc_b(d, c);
-    Ulp = XXi + (long)c * c;
-    B = Ulp + (long)d * d;
-    fr = B + (long)d * c;
-    if (!mv_st_smem(d, c)) wst = fr + mv_frame_len(d, c) + 2L * d * d;
-  } else {
-    __shared__ double accA_s[MV_ACC_A];
-    __shared__ double accB_s[MV_ACC_B];
-    __shared__ double XXi_s[MV_MAX_C * MV_MAX_C];
-    __shared__ double Ulp_s[MV_MAX_D * MV_MAX_D];
-    __shared__ double B_s[MV_MAX_D * MV_MAX_C];
-    accA = accA_s;
-    accB = accB_s;
-    XXi = XXi_s;
-    Ulp = Ulp_s;
-    B = B_s;
-  }
-  const MvSt st = mv_st<MD, MC>(wst);
-
-  if (tid == 0) {
-    mv_state_bind(s, w, d, c);
-    for (int i = 0; i < dd; ++i) {
+  for (;;) {
+    if (tm.leader()) ctl.lane = atomicAdd(ctr, 1);
+    tm.sync();
+    const int li = ctl.lane;
+    if (li >= count) break;
+    const int lane = s0 + li;
+    pf.count(MV_PC_LANES, 1);
+    MvLane<T> L = mv_lane(ev, x0, y, R, n, d, c0, r, lane);
+    double* w = MD == 0 ? scratch + (long)li * mv_em_state(d, c) : fixed;
+    double* accA = w + mv_state_len(d, c);
+    double* accB = accA + mv_em_acc_a(d, c);
+    double* XXi = accB + mv_em_acc_b(d, c);
+    double* Ulp = XXi + (long)c * c;
+    double* B = Ulp + dd;
+    double* fr = B + dc;       // the team's temporaries
+    if (tm.leader()) {
+      mv_state_bind(s, w, d, c);
+      ctl.logl = ctl.logl_prev = 0.0;
+      ctl.done = 0;
+      ctl.iters = max_iter;
+    }
+    tm.sync();
+    MV_TFOR(tm, i, dd) {
       s.Vg[i] = Vg0[(long)lane * vstride + i];
       s.Ve[i] = Ve0[(long)lane * vstride + i];
     }
-    for (int i = 0; i < d * c; ++i) B[i] = B0[(long)lane * bstride + i];
-    s.flag = 0;
-  }
-  mv_accumulate(L, s, STAGE_X, PX, st, accA);
-  if (tid == 0) logl_const = mv_logl_const<MC>(accA, PX, reml, n, XXi, fr);
-  __syncthreads();
+    MV_TFOR(tm, i, dc) B[i] = B0[(long)lane * bstride + i];
+    mv_pass<T, STAGE_X>(tm, L, s, PX, buf, geo.NB, accA, pf);
+    if (tm.leader())
+      ctl.logl_const = mv_logl_const<MC>(accA, PX, reml, n, XXi, fr);
+    pf.mark(MV_PH_GLS);
+    tm.sync();
+    pf.mark(MV_PH_WAIT);
 
-  double logl = 0.0, logl_prev = 0.0;      // thread 0's
-  int done = 0, iters = max_iter;
-  for (int t = 0; t < max_iter; ++t) {
-    if (tid == 0) {
-      mv_eigen_proc(d, s.Vg, s.Ve, s, (!reml && t > 0) ? Ulp : nullptr, fr);
+    for (int t = 0; t < max_iter; ++t) {
+      pf.count(MV_PC_ITERS, 1);
+      mv_t_eigen_proc(tm, d, s.Vg, s.Ve, s, &s.logdet_Ve,
+                      (!reml && t > 0) ? Ulp : nullptr, fr);
       if (!reml && t == 0)     // GEMMA seeds UltVehiBX from the input B
-        for (int l = 0; l < d; ++l)
-          for (int i = 0; i < c; ++i) {
-            double a = 0.0;
-            for (int m = 0; m < d; ++m) a += s.A[l * d + m] * B[m * c + i];
-            s.Bc[l * c + i] = a;
-          }
-    }
-    __syncthreads();
-    mv_accumulate(L, s, reml ? STAGE_Z : STAGE_ML, PA, st, accA);
-    if (tid == 0) {
-      const double ldq = mv_gls(accA, PA, s, fr);
-      const double ll = mv_logl(accA, PA, s, ldq, reml, logl_const, n);
+        MV_TFOR(tm, e, dc) {
+          const int l = e / c, i = e % c;
+          double a = 0.0;
+          for (int m = 0; m < d; ++m) a += s.A[l * d + m] * B[m * c + i];
+          s.Bc[e] = a;
+        }
+      pf.mark(MV_PH_EIGEN);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
+      pf.count(MV_PC_LIK, 1);
+      if (reml)
+        mv_pass<T, STAGE_Z>(tm, L, s, PA, buf, geo.NB, accA, pf);
+      else
+        mv_pass<T, STAGE_ML>(tm, L, s, PA, buf, geo.NB, accA, pf);
+      const double ldq = mv_t_gls<MC>(tm, accA, PA, s, fr);
+      const double ll = mv_logl(accA, PA, s, ldq, reml, ctl.logl_const, n);
       const bool check = t > 0 && !(staged && mv_burst_start(t));
       const bool fin = isfinite(ll);
-      s.flag = 0;
-      if (check && (fabs(ll - logl_prev) < prec || !fin)) {
-        done = 1;
-        iters = t;
-        s.flag = 1;
+      const bool stop = check && (fabs(ll - ctl.logl_prev) < prec || !fin);
+      tm.sync();               // every thread has read logl_prev
+      if (stop) {
+        if (tm.leader()) {
+          ctl.done = 1;
+          ctl.iters = t;
+          if (!fin) ctl.logl = ll;
+        }
         if (!fin) {            // NaN-poisoned, as the reference
           const double nan = ll - ll;
-          for (int i = 0; i < dd; ++i) s.Vg[i] = s.Ve[i] = nan;
-          for (int i = 0; i < d * c; ++i) B[i] = nan;
-          logl = ll;
+          MV_TFOR(tm, i, dd) s.Vg[i] = s.Ve[i] = nan;
+          MV_TFOR(tm, i, dc) B[i] = nan;
         }
       } else {
-        logl = logl_prev = ll;
+        if (tm.leader()) ctl.logl = ctl.logl_prev = ll;
         if (!reml)             // UpdateL_B: this iteration's UltVehiB
-          for (int l = 0; l < d; ++l)
-            for (int i = 0; i < c; ++i) {
-              double a = 0.0;
-              for (int j = 0; j < c; ++j)
-                a += mv_at(accA, PA, fS1, l * c + j) * XXi[j * c + i];
-              s.Bn[l * c + i] = a;
-            }
+          MV_TFOR(tm, e, dc) {
+            const int l = e / c, i = e % c;
+            double a = 0.0;
+            for (int j = 0; j < c; ++j)
+              a += mv_at(accA, PA, F.s1, l * c + j) * XXi[j * c + i];
+            s.Bn[e] = a;
+          }
       }
-    }
-    __syncthreads();
-    if (s.flag) break;
-    mv_accumulate(L, s, reml ? STAGE_PY : STAGE_E, PB, st, accB);
-    if (tid == 0) {
+      pf.mark(MV_PH_GLS);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
+      if (stop) break;
+      pf.count(MV_PC_DER, 1);
+      if (reml)
+        mv_pass<T, STAGE_PY>(tm, L, s, PB, buf, geo.NB, accB, pf);
+      else
+        mv_pass<T, STAGE_E>(tm, L, s, PB, buf, geo.NB, accB, pf);
       // CalcSigma and UpdateV in the whitened basis, then rotated back
-      MvTmp<double, MD * MD> tU, tE;
-      double* fr2 = fr;
-      double* U = tU.take(fr2, d * d);
-      double* E = tE.take(fr2, d * d);
-      for (int l = 0; l < d; ++l) {
-        for (int m = 0; m < d; ++m) {
-          const double uu = reml ? mv_dd(accB, PB, fG1, l, m)
-                                 : mv_dd(accA, PA, fGG, l, m);
-          U[l * d + m] = s.D[l] * uu * s.D[m];
-          E[l * d + m] = mv_dd(accB, PB, fG0, l, m);
+      double* U = fr;
+      double* E = U + dd;
+      MV_TFOR(tm, e, dd) {
+        const int l = e / d, m = e % d;
+        const double uu = reml ? mv_dd(accB, PB, F.g1, l, m)
+                               : mv_dd(accA, PA, F.gg, l, m);
+        // D U D rounded before the diagonal's additions, as one thread
+        // computing U and then its diagonal did: nothing fuses it
+        double u = __dmul_rn(__dmul_rn(s.D[l], uu), s.D[m]);
+        double v = mv_dd(accB, PB, F.g0, l, m);
+        if (l == m) {
+          u += s.D[l] * mv_at(accA, PA, F.sw, l);
+          v += s.D[l] * mv_at(accA, PA, F.sdw, l);
+          if (reml) {
+            u += s.D[l] * s.D[l] * mv_at(accB, PB, F.su, l);
+            v += mv_at(accB, PB, F.se, l);
+          }
         }
-        const double sw = mv_at(accA, PA, fSW, l);
-        const double sdw = mv_at(accA, PA, fSDW, l);
-        U[l * d + l] += s.D[l] * sw;
-        E[l * d + l] += s.D[l] * sdw;
-        if (reml) {
-          U[l * d + l] += s.D[l] * s.D[l] * mv_at(accB, PB, fSU, l);
-          E[l * d + l] += mv_at(accB, PB, fSE, l);
-        }
+        U[e] = u;
+        E[e] = v;
       }
-      for (int i = 0; i < d; ++i)
-        for (int j = 0; j < d; ++j) {
-          double g = 0.0, e = 0.0;
-          for (int l = 0; l < d; ++l)
-            for (int m = 0; m < d; ++m) {
-              const double h = s.Uh[l * d + i] * s.Uh[m * d + j];
-              g += h * U[l * d + m];
-              e += h * E[l * d + m];
-            }
-          s.Vg[i * d + j] = g / n;
-          s.Ve[i * d + j] = e / n;
-        }
+      tm.sync();
+      MV_TFOR(tm, e, dd) {
+        const int i = e / d, j = e % d;
+        double g = 0.0, ee = 0.0;
+        for (int l = 0; l < d; ++l)
+          for (int m = 0; m < d; ++m) {
+            const double h = s.Uh[l * d + i] * s.Uh[m * d + j];
+            g += h * U[l * d + m];
+            ee += h * E[l * d + m];
+          }
+        s.Vg[e] = g / n;
+        s.Ve[e] = ee / n;
+      }
       const double* Bw = reml ? s.beta : s.Bn;
-      for (int i = 0; i < d; ++i)
-        for (int j = 0; j < c; ++j) {
-          double a = 0.0;
-          for (int l = 0; l < d; ++l) a += s.Uh[l * d + i] * Bw[l * c + j];
-          B[i * c + j] = a;
-        }
-      if (!reml) {
-        for (int i = 0; i < d * c; ++i) s.Bc[i] = s.Bn[i];
-        for (int i = 0; i < dd; ++i) Ulp[i] = s.Ul[i];
+      MV_TFOR(tm, e, dc) {
+        const int i = e / c, j = e % c;
+        double a = 0.0;
+        for (int l = 0; l < d; ++l) a += s.Uh[l * d + i] * Bw[l * c + j];
+        B[e] = a;
       }
+      if (!reml) {
+        tm.sync();             // B has read Bn
+        MV_TFOR(tm, i, dc) s.Bc[i] = s.Bn[i];
+        MV_TFOR(tm, i, dd) Ulp[i] = s.Ul[i];
+      }
+      pf.mark(MV_PH_STEP);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
     }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    for (int i = 0; i < dd; ++i) {
+    MV_TFOR(tm, i, dd) {
       Vg_out[(long)lane * dd + i] = s.Vg[i];
       Ve_out[(long)lane * dd + i] = s.Ve[i];
     }
-    for (int i = 0; i < d * c; ++i) B_out[(long)lane * d * c + i] = B[i];
-    logl_out[lane] = logl;
-    done_out[lane] = done;
-    iters_out[lane] = iters;
+    MV_TFOR(tm, i, dc) B_out[(long)lane * dc + i] = B[i];
+    if (tm.leader()) {
+      logl_out[lane] = ctl.logl;
+      done_out[lane] = ctl.done;
+      iters_out[lane] = ctl.iters;
+    }
+    pf.flush();
+    tm.sync();
   }
+}
+
+// the launch geometry of K9 at these sizes (mv_geom)
+template <typename T>
+__host__ inline MvGeom mv_em_geom(int count, int n, int d, int c0, int r) {
+  const int c = c0 + r;
+  return mv_geom(count, n, d, c0, c, sizeof(T),
+                 mv_dyn(d, c) ? 0 : mv_em_state(d, c));
 }
 
 #define MPH_EM_LAUNCH(name, T)                                               \
@@ -268,29 +315,31 @@ mph_em_kernel(int reml, int staged, int max_iter, double prec, int n, int d,
       int c0, int r, const void* eval, const void* X0, const void* Y,        \
       const void* R, const void* Vg0, const void* Ve0, int vstride,          \
       const void* B0, int bstride, void* Vg, void* Ve, void* B, void* logl,  \
-      void* done, void* iters, int s0, int count, void* scratch,             \
+      void* done, void* iters, void* ctr, int s0, int count, void* scratch,  \
       void* stream) {                                                        \
     const int c = c0 + r;                                                    \
-    const bool dyn = mv_dyn(d, c);                                           \
-    auto kern = dyn ? mph_em_kernel<T, 0, 0>                                 \
-                    : mph_em_kernel<T, MV_MAX_D, MV_MAX_C>;                  \
-    const int smem = dyn && mv_st_smem(d, c)                                 \
-                         ? mv_nrow(d, c) * MV_CH * 8 : 0;                    \
-    if (smem > 0)                                                            \
-      cudaFuncSetAttribute(kern,                                             \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,      \
-                           smem);                                            \
+    const MvGeom g = mv_em_geom<T>(count, n, d, c0, r);                      \
+    if (!mv_geom_ok(g, d, c)) return (int)cudaErrorInvalidValue;             \
+    auto kern = mv_dyn(d, c) ? mph_em_kernel<T, 0, 0>                        \
+                             : mph_em_kernel<T, MV_MAX_D, MV_MAX_C>;         \
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                         (int)g.bytes);                                      \
     if (count > 0)                                                           \
-      kern<<<count, MV_THREADS, smem, (cudaStream_t)stream>>>(               \
+      kern<<<(count + g.L - 1) / g.L, 32 * g.W * g.L, g.bytes,               \
+             (cudaStream_t)stream>>>(                                        \
           reml, staged, max_iter, prec, n, d, c0, r, (const T*)eval,         \
           (const T*)X0, (const T*)Y, (const T*)R, (const double*)Vg0,        \
           (const double*)Ve0, vstride, (const double*)B0, bstride,           \
           (double*)Vg, (double*)Ve, (double*)B, (double*)logl, (int*)done,   \
-          (int*)iters, s0, (double*)scratch);                                \
+          (int*)iters, g, (int*)ctr, s0, count, (double*)scratch);           \
     return (int)cudaGetLastError();                                          \
   }                                                                          \
   extern "C" long name##_lane_bytes(int d, int c) {                          \
-    return mv_dyn(d, c) ? 8 * mv_em_scratch(d, c) : 0;                       \
+    return mv_dyn(d, c) ? 8 * mv_em_state(d, c) : 0;                         \
+  }                                                                          \
+  extern "C" long name##_geometry(int count, int n, int d, int c0, int r,    \
+                                  int what) {                                \
+    return mv_geom_field(mv_em_geom<T>(count, n, d, c0, r), what);           \
   }
 
 // built once a precision (-DGT_ONLY=32 / 64, kernels.Kernel's `only`)

@@ -17,24 +17,27 @@
 // of it reduces to sums over n (mvlmm_lane.cuh: F_WW, F_N, F_ZZ, F_K,
 // F_F, F_MTR, F_WWH) contracted with the d inverse Gram blocks Qi_l.
 //
-// One thread block per lane.  Per Newton iteration: up to ten step
-// halvings, each an EigenProc and one pass over n for the likelihood
-// (accepted as GEMMA: positive definite, not lower, at most 10 higher);
-// GEMMA's exit rules; then at the new point two passes over n for the
-// derivative sums, the Hessian's p2² entries across the block's threads
-// and its inverse on thread 0 (Gauss-Jordan, partial pivoting).  The
-// sums and the Hessian live in a per-lane scratch the wrapper allocates
-// (its size: mph_nr_lane_bytes).  Hvar = -H^-1 at the last point where
-// derivatives were taken, as the reference returns it.
+// A team of warps a lane (mvlmm_lane.cuh), the teams taking their lanes
+// from the launch's counter.  Per Newton iteration: up to ten step
+// halvings, each the PD tests and EigenProc on the team and one pass over
+// n for the likelihood (accepted as GEMMA: positive definite, not lower,
+// at most 10 higher); GEMMA's exit rules; then at the new point two
+// passes over n for the derivative sums, the gradient, the trace tables
+// and the Hessian's p2² entries across the team, and its Gauss-Jordan
+// inverse across the team (the pivot by a fixed-order reduction, as one
+// thread's partial pivoting).  The sums and the Hessian live in a
+// per-lane scratch the wrapper allocates (mph_nr_lane_bytes).  Hvar =
+// -H^-1 at the last point where derivatives were taken, as the reference
+// returns it.
 //
 // Bound: operations — O(n (d² c² + d³)) float64 multiply-adds per
 // derivative evaluation and O(n d c²) per likelihood evaluation.
 //
 // Lanes [s0, s0 + count) of a launch; the scratch holds `count` lanes
 // (the wrapper splits a block's lanes under a byte budget).  Beyond d = 8
-// or 10 design rows the run-time-sized form (MD = MC = 0, mvlmm_lane.cuh)
-// runs, with its state, v, vsave, step, grad, thread 0's frame and the
-// trace tables' per-thread c×c products in the scratch too.
+// or 10 design rows the run-time-sized form (MD = MC = 0) keeps the
+// state, v, vsave, step, grad, the team's temporaries and the trace
+// tables' per-thread rows in the scratch too.
 #include "mvlmm_lane.cuh"
 
 struct NrFam {
@@ -71,55 +74,73 @@ __host__ __device__ inline long mv_nr_scratch(int d, int c) {
          4 * d * d + p2 * d * c;
 }
 
-__device__ inline void mv_unpack(int d, const double* v, double* Vg,
-                                 double* Ve) {
+// doubles of a lane's state: the matrices, v, vsave, step, grad and the
+// team's temporaries (the team's shared memory in the fixed
+// instantiation, the lane's scratch beyond it)
+__host__ __device__ inline long mv_nr_state(int d, int c) {
+  const long p2 = (long)d * (d + 1);
+  return mv_state_len(d, c) + 4 * p2 + mv_tframe_len(d, c) + p2;
+}
+
+// the run-time-sized form's additions to a lane's scratch: the state and
+// the trace tables' per-thread rows (two c-vectors a thread)
+__host__ __device__ inline long mv_nr_dyn_extra(int d, int c) {
+  return mv_nr_state(d, c) + 2L * 32 * MV_MAX_W * c;
+}
+
+// v (vech Vg, vech Ve) → the symmetric Vg, Ve, one parameter a thread
+__device__ inline void mv_t_unpack(const MvTeam& tm, int d, const double* v,
+                                   double* Vg, double* Ve) {
   const int nv = d * (d + 1) / 2;
-  for (int a = 0; a < nv; ++a) {
+  MV_TFOR(tm, a, nv) {
     int i, j;
     mv_vech_pair(a, d, i, j);
     Vg[i * d + j] = Vg[j * d + i] = v[a];
     Ve[i * d + j] = Ve[j * d + i] = v[nv + a];
   }
-}
-
-// the run-time-sized form's additions to a lane's scratch: the state, v,
-// vsave, step, grad, thread 0's frame, the trace tables' per-thread
-// products and, where they outgrow MV_ST_SMEM, the staged rows
-__host__ __device__ inline long mv_nr_dyn_extra(int d, int c) {
-  const long p2 = (long)d * (d + 1);
-  return mv_state_len(d, c) + 4 * p2 + mv_frame_len(d, c) +
-         2L * MV_THREADS * c * c +
-         (mv_st_smem(d, c) ? 0 : (long)mv_nrow(d, c) * MV_CH);
-}
-
-template <int MD>
-__device__ inline bool mv_is_pd(int d, const double* M, double* fr) {
-  MvTmp<double, MD * MD> tW, tV;
-  MvTmp<double, MD> tw;
-  double* W = tW.take(fr, d * d);
-  double* w = tw.take(fr, d);
-  double* V = tV.take(fr, d * d);
-  for (int i = 0; i < d * d; ++i) W[i] = M[i];
-  mv_eigh<MD>(d, W, w, V, nullptr, fr);
-  for (int i = 0; i < d; ++i)
-    if (!(w[i] > 0.0)) return false;
-  return true;
+  tm.sync();
 }
 
 template <typename T, int MD, int MC>
-__global__ void __launch_bounds__(MV_THREADS)
+__global__ void __launch_bounds__(32 * MV_MAX_W, 1)
 mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
               int r, const T* __restrict__ eval, const T* __restrict__ X0,
               const T* __restrict__ Y, const T* __restrict__ R,
               const double* __restrict__ Vg0, const double* __restrict__ Ve0,
               int vstride, double* scratch, double* Vg_out, double* Ve_out,
-              double* logl_out, double* Hvar_out, int s0) {
-  __shared__ MvState<MD, MC> s;
-  __shared__ double logl_const, logl;
-  __shared__ int accepted, done;
-  const int lane = s0 + blockIdx.x, tid = threadIdx.x;
-  const MvLane<T> L = mv_lane(eval, X0, Y, R, n, d, c0, r, lane);
-  const int c = L.c, dd = d * d, p2 = d * (d + 1), nv = p2 / 2;
+              double* logl_out, double* Hvar_out, MvGeom geo, int* ctr,
+              int s0, int count) {
+  extern __shared__ __align__(16) double mv_smem[];
+  const int c = c0 + r, dd = d * d, p2 = d * (d + 1), nv = p2 / 2;
+  const T *ev = eval, *x0 = X0, *y = Y;
+  long cb = 0;
+  if (geo.common) {
+    T* cm = reinterpret_cast<T*>(mv_smem);
+    const long m = (long)(1 + c0 + d) * n;
+    for (long i = threadIdx.x; i < m; i += blockDim.x)
+      cm[i] = i < n ? eval[i]
+                    : i < (long)(1 + c0) * n ? X0[i - n] : Y[i - (long)(1 + c0) * n];
+    __syncthreads();
+    ev = cm;
+    x0 = cm + n;
+    y = cm + (long)(1 + c0) * n;
+    cb = mv_common_bytes(n, d, c0, sizeof(T)) / 8;
+  }
+  MvTeam tm;
+  tm.W = geo.W;
+  tm.size = 32 * geo.W;
+  tm.id = threadIdx.x / tm.size;
+  tm.rank = threadIdx.x % tm.size;
+  tm.warp = tm.rank / 32;
+  tm.lane = tm.rank % 32;
+  tm.whole = geo.L == 1;
+  const int nrow = mv_nrow(d, c);
+  double* buf = mv_smem + cb + (long)tm.id * geo.team;
+  double* cbase = buf + mv_team_buf(nrow, geo.NB, geo.W);
+  MvCtl<MvState<0, 0>>& ctl =
+      *reinterpret_cast<MvCtl<MvState<0, 0>>*>(cbase);
+  MvState<0, 0>& s = ctl.s;
+  double* fixed = cbase + MV_CTL;
 
   MvPass PA, PB, PC, PX;
   NrFam F;
@@ -132,134 +153,129 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
   mv_nr_passes(PAr, PBr, Fr, d, c, 1);
   const long lane_len =
       mv_nr_scratch(d, c) + (MD == 0 ? mv_nr_dyn_extra(d, c) : 0);
-  double* accA = scratch + (long)blockIdx.x * lane_len;
-  double* accB = accA + mv_pass_size(PAr);
-  double* H = accB + mv_pass_size(PBr);
-  double* Hinv = H + (long)p2 * p2;
-  double* St = Hinv + (long)p2 * p2;
-  double* Tt = St + (long)nv * dd;
-  double* fv = Tt + 4 * dd;
-  double *v, *vsave, *step, *grad;
-  double* w = fv + (long)p2 * d * c;  // the run-time-sized form's part
-  double* fr = nullptr;       // thread 0's frame in it
-  double* xfr = nullptr;      // the trace tables' per-thread products
-  double* wst = nullptr;      // the staged rows in it, if there
-  if constexpr (MD == 0) {
-    v = w + mv_state_len(d, c);
-    vsave = v + p2;
-    step = vsave + p2;
-    grad = step + p2;
-    fr = grad + p2;
-    xfr = fr + mv_frame_len(d, c);
-    if (!mv_st_smem(d, c)) wst = xfr + 2L * MV_THREADS * c * c;
-  } else {
-    __shared__ double v_s[MV_MAX_D * (MV_MAX_D + 1)],
-        vsave_s[MV_MAX_D * (MV_MAX_D + 1)], step_s[MV_MAX_D * (MV_MAX_D + 1)],
-        grad_s[MV_MAX_D * (MV_MAX_D + 1)];
-    v = v_s;
-    vsave = vsave_s;
-    step = step_s;
-    grad = grad_s;
-  }
-  const MvSt st = mv_st<MD, MC>(wst);
+  MvProf pf;
+  pf.start(tm.leader());
 
-  if (tid == 0) {
-    mv_state_bind(s, w, d, c);
-    for (int i = 0; i < dd; ++i) {
+  for (;;) {
+    if (tm.leader()) ctl.lane = atomicAdd(ctr, 1);
+    tm.sync();
+    const int li = ctl.lane;
+    if (li >= count) break;
+    const int lane = s0 + li;
+    pf.count(MV_PC_LANES, 1);
+    const MvLane<T> L = mv_lane(ev, x0, y, R, n, d, c0, r, lane);
+    double* accA = scratch + (long)li * lane_len;
+    double* accB = accA + mv_pass_size(PAr);
+    double* H = accB + mv_pass_size(PBr);
+    double* Hinv = H + (long)p2 * p2;
+    double* St = Hinv + (long)p2 * p2;
+    double* Tt = St + (long)nv * dd;
+    double* fv = Tt + 4 * dd;
+    double* w = MD == 0 ? fv + (long)p2 * d * c : fixed;
+    double* v = w + mv_state_len(d, c);
+    double* vsave = v + p2;
+    double* step = vsave + p2;
+    double* grad = step + p2;
+    double* fr = grad + p2;    // the team's temporaries
+    double* fpiv = fr + mv_tframe_len(d, c);   // the inverse's column
+    // the trace tables' per-thread rows (run-time-sized form)
+    double* xrow = MD == 0 ? w + mv_nr_state(d, c) + 2L * tm.rank * c
+                           : nullptr;
+    if (tm.leader()) {
+      mv_state_bind(s, w, d, c);
+      ctl.logl = -INFINITY;
+    }
+    tm.sync();
+    MV_TFOR(tm, i, dd) {
       s.Vg[i] = Vg0[(long)lane * vstride + i];
       s.Ve[i] = Ve0[(long)lane * vstride + i];
     }
-    for (int a = 0; a < nv; ++a) {
+    tm.sync();
+    MV_TFOR(tm, a, nv) {
       int i, j;
       mv_vech_pair(a, d, i, j);
       v[a] = s.Vg[i * d + j];
       v[nv + a] = s.Ve[i * d + j];
     }
-    for (int a = 0; a < p2; ++a) {
-      grad[a] = 0.0;
-      for (int b = 0; b < p2; ++b) Hinv[a * p2 + b] = a == b ? 1.0 : 0.0;
-    }
-    logl = -INFINITY;
-    done = 0;
-  }
-  mv_accumulate(L, s, STAGE_X, PX, st, accA);
-  if (tid == 0)
-    logl_const = mv_logl_const<MC>(accA, PX, reml, n, nullptr, fr);
-  __syncthreads();
+    MV_TFOR(tm, a, p2) grad[a] = 0.0;
+    MV_TFOR(tm, e, p2 * p2) Hinv[e] = e / p2 == e % p2 ? 1.0 : 0.0;
+    mv_pass<T, STAGE_X>(tm, L, s, PX, buf, geo.NB, accA, pf);
+    if (tm.leader())
+      ctl.logl_const = mv_logl_const<MC>(accA, PX, reml, n, nullptr, fr);
+    pf.mark(MV_PH_GLS);
+    tm.sync();
+    pf.mark(MV_PH_WAIT);
 
-  for (int t = 0; t < max_iter; ++t) {
-    const bool first = t == 0;
-    // thread 0's view of the halving loop
-    double lnew = -INFINITY;
-    bool pdnew = false;
-    if (tid == 0) {
-      for (int a = 0; a < p2; ++a) {
+    for (int t = 0; t < max_iter; ++t) {
+      const bool first = t == 0;
+      pf.count(MV_PC_ITERS, 1);
+      MV_TFOR(tm, a, p2) {
         vsave[a] = v[a];
         double g = 0.0;
         for (int b = 0; b < p2; ++b) g += Hinv[a * p2 + b] * grad[b];
         step[a] = g;
       }
-      accepted = 0;
-    }
-    __syncthreads();
-    for (int i = 0; i < 10; ++i) {
-      bool pd = false;
-      if (tid == 0) {
+      pf.mark(MV_PH_STEP);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
+      // the halving loop: every thread holds the same lnew, pdnew
+      double lnew = -INFINITY;
+      bool pdnew = false;
+      for (int i = 0; i < 10; ++i) {
         const double scale = ldexp(1.0, -i);
-        for (int a = 0; a < p2; ++a)
-          v[a] = first ? vsave[a] : vsave[a] - scale * step[a];
-        mv_unpack(d, v, s.Vg, s.Ve);
-        pd = mv_is_pd<MD>(d, s.Vg, fr) && mv_is_pd<MD>(d, s.Ve, fr);
-        mv_eigen_proc(d, s.Vg, s.Ve, s, nullptr, fr);
-      }
-      __syncthreads();
-      mv_accumulate(L, s, STAGE_Z, PC, st, accA);
-      if (tid == 0) {
-        const double ldq = mv_gls(accA, PC, s, fr);
-        const double lt = mv_logl(accA, PC, s, ldq, reml, logl_const, n);
+        MV_TFOR(tm, a, p2) v[a] = first ? vsave[a] : vsave[a] - scale * step[a];
+        tm.sync();
+        mv_t_unpack(tm, d, v, s.Vg, s.Ve);
+        bool pd = mv_t_is_pd(tm, d, s.Vg, fr);
+        if (pd) pd = mv_t_is_pd(tm, d, s.Ve, fr);
+        mv_t_eigen_proc(tm, d, s.Vg, s.Ve, s, &s.logdet_Ve, nullptr, fr);
+        pf.mark(MV_PH_EIGEN);
+        pf.count(MV_PC_LIK, 1);
+        mv_pass<T, STAGE_Z>(tm, L, s, PC, buf, geo.NB, accA, pf);
+        const double ldq = mv_t_gls<MC>(tm, accA, PC, s, fr);
+        const double lt = mv_logl(accA, PC, s, ldq, reml, ctl.logl_const, n);
         lnew = lt;
         pdnew = pd;
-        accepted = first || (pd && lt >= logl && lt - logl <= 10.0);
+        const double lg = ctl.logl;
+        pf.mark(MV_PH_GLS);
+        if (first || (pd && lt >= lg && lt - lg <= 10.0)) break;
       }
-      __syncthreads();
-      if (accepted) break;
-    }
-    if (tid == 0) {
       // GEMMA's exit rules (mvlmm.cpp:2724-2734)
-      const bool revert = !first && (lnew < logl || !pdnew);
-      const bool small = !first && (lnew - logl < prec);
-      done = revert || small || !isfinite(lnew);
+      const double lg = ctl.logl;
+      const bool revert = !first && (lnew < lg || !pdnew);
+      const bool small = !first && (lnew - lg < prec);
+      const bool done = revert || small || !isfinite(lnew);
+      tm.sync();               // every thread has read logl
       if (revert)
-        for (int a = 0; a < p2; ++a) v[a] = vsave[a];
-      else
-        logl = lnew;
-    }
-    __syncthreads();
-    if (done) break;
+        MV_TFOR(tm, a, p2) v[a] = vsave[a];
+      else if (tm.leader())
+        ctl.logl = lnew;
+      pf.mark(MV_PH_STEP);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
+      if (done) break;
 
-    // the derivatives at the new point
-    if (tid == 0) {
-      mv_unpack(d, v, s.Vg, s.Ve);
-      mv_eigen_proc(d, s.Vg, s.Ve, s, nullptr, fr);
-    }
-    __syncthreads();
-    mv_accumulate(L, s, STAGE_Z, PA, st, accA);
-    if (tid == 0) mv_gls(accA, PA, s, fr);
-    __syncthreads();
-    mv_accumulate(L, s, STAGE_PY, PB, st, accB);
-    if (tid == 0) {
-      // A S_a A' (whitened derivative basis), the gradient, the f vectors
-      for (int a = 0; a < nv; ++a) {
+      // the derivatives at the new point
+      pf.count(MV_PC_DER, 1);
+      mv_t_unpack(tm, d, v, s.Vg, s.Ve);
+      mv_t_eigen_proc(tm, d, s.Vg, s.Ve, s, &s.logdet_Ve, nullptr, fr);
+      pf.mark(MV_PH_EIGEN);
+      mv_pass<T, STAGE_Z>(tm, L, s, PA, buf, geo.NB, accA, pf);
+      mv_t_gls<MC>(tm, accA, PA, s, fr);
+      pf.mark(MV_PH_GLS);
+      mv_pass<T, STAGE_PY>(tm, L, s, PB, buf, geo.NB, accB, pf);
+      // A S_a A' (whitened derivative basis)
+      MV_TFOR(tm, e, nv * dd) {
+        const int a = e / dd, l = (e % dd) / d, m = e % d;
         int i, j;
         mv_vech_pair(a, d, i, j);
-        for (int l = 0; l < d; ++l)
-          for (int m = 0; m < d; ++m)
-            St[a * dd + l * d + m] =
-                i == j ? s.A[l * d + i] * s.A[m * d + i]
+        St[e] = i == j ? s.A[l * d + i] * s.A[m * d + i]
                        : s.A[l * d + i] * s.A[m * d + j] +
                              s.A[l * d + j] * s.A[m * d + i];
       }
-      for (int a = 0; a < p2; ++a) {
+      tm.sync();
+      // the gradient and the f vectors
+      MV_TFOR(tm, a, p2) {
         const int ta = a < nv ? 1 : 0;
         const double* Sa = St + (a % nv) * dd;
         double g = 0.0;
@@ -271,88 +287,100 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
             g += 0.5 * Sa[l * d + m] * mv_dd(accB, PB, F.g[ta], l, m);
         }
         grad[a] = g;
-        for (int l = 0; l < d; ++l)
+      }
+      MV_TFOR(tm, e, p2 * d * c) {
+        const int a = e / (d * c), l = (e / c) % d, i = e % c;
+        const int ta = a < nv ? 1 : 0;
+        const double* Sa = St + (a % nv) * dd;
+        double f = 0.0;
+        for (int m = 0; m < d; ++m)
+          f += Sa[l * d + m] * mv_at(accB, PB, F.f[ta], (l * d + m) * c + i);
+        fv[e] = f;
+      }
+      // the trace tables T^{uv}_{lm}; tr(Ql Nu Qm Nw) a row of Ql Nu and a
+      // column of Qm Nw at a time
+      MV_TFOR(tm, e, 4 * dd) {
+        const int u = e / (2 * dd), ww = (e / dd) % 2, l = (e % dd) / d,
+                  m = e % d;
+        double tv = mv_dd(accA, PA, F.t1[u + ww], l, m);
+        if (reml) {
+          tv -= mv_at(accB, PB, F.mtr[u + ww], l * d + m) +
+                mv_at(accB, PB, F.mtr[u + ww], m * d + l);
+          const double* Nu = accA + PA.base[F.n[u]] + mv_ti(l, m, d) * mv_tri(c);
+          const double* Nw = accA + PA.base[F.n[ww]] + mv_ti(l, m, d) * mv_tri(c);
+          const double* Ql = s.Qi + l * c * c;
+          const double* Qm = s.Qi + m * c * c;
+          double rl[MC > 0 ? MC : 1], cm[MC > 0 ? MC : 1];
+          double* r1 = MC > 0 ? rl : xrow;
+          double* c2 = MC > 0 ? cm : xrow + c;
+          double tr = 0.0;
           for (int i = 0; i < c; ++i) {
-            double f = 0.0;
-            for (int m = 0; m < d; ++m)
-              f += Sa[l * d + m] *
-                   mv_at(accB, PB, F.f[ta], (l * d + m) * c + i);
-            fv[(a * d + l) * c + i] = f;
-          }
-      }
-    }
-    // the trace tables T^{uv}_{lm}
-    for (int e = tid; e < 4 * dd; e += MV_THREADS) {
-      const int u = e / (2 * dd), w = (e / dd) % 2, l = (e % dd) / d,
-                m = e % d;
-      double tv = mv_dd(accA, PA, F.t1[u + w], l, m);
-      if (reml) {
-        tv -= mv_at(accB, PB, F.mtr[u + w], l * d + m) +
-              mv_at(accB, PB, F.mtr[u + w], m * d + l);
-        const double* Nu = accA + PA.base[F.n[u]] + mv_ti(l, m, d) * mv_tri(c);
-        const double* Nw = accA + PA.base[F.n[w]] + mv_ti(l, m, d) * mv_tri(c);
-        const double* Ql = s.Qi + l * c * c;
-        const double* Qm = s.Qi + m * c * c;
-        MvTmp<double, MC * MC> tX1, tX2;
-        double* xf = xfr + 2L * tid * c * c;
-        double* X1 = tX1.take(xf, c * c);
-        double* X2 = tX2.take(xf, c * c);
-        for (int i = 0; i < c; ++i)
-          for (int j = 0; j < c; ++j) {
-            double a1 = 0.0, a2 = 0.0;
-            for (int k = 0; k < c; ++k) {
-              a1 += Ql[i * c + k] * Nu[mv_ti(k, j, c)];
-              a2 += Qm[i * c + k] * Nw[mv_ti(k, j, c)];
+            for (int j = 0; j < c; ++j) {
+              double a1 = 0.0, a2 = 0.0;
+              for (int k = 0; k < c; ++k) {
+                a1 += Ql[i * c + k] * Nu[mv_ti(k, j, c)];
+                a2 += Qm[j * c + k] * Nw[mv_ti(k, i, c)];
+              }
+              r1[j] = a1;
+              c2[j] = a2;
             }
-            X1[i * c + j] = a1;
-            X2[i * c + j] = a2;
+            for (int j = 0; j < c; ++j) tr += r1[j] * c2[j];
           }
-        double tr = 0.0;
-        for (int i = 0; i < c; ++i)
-          for (int j = 0; j < c; ++j) tr += X1[i * c + j] * X2[j * c + i];
-        tv += tr;
-      }
-      Tt[e] = tv;
-    }
-    __syncthreads();
-    // the Hessian, one entry per thread at a time
-    for (int e = tid; e < p2 * p2; e += MV_THREADS) {
-      const int a = e / p2, b = e % p2;
-      const int ta = a < nv ? 1 : 0, tb = b < nv ? 1 : 0;
-      const double* Sa = St + (a % nv) * dd;
-      const double* Sb = St + (b % nv) * dd;
-      const double* Tab = Tt + (ta * 2 + tb) * dd;
-      const double* K = accB + PB.base[F.k[ta + tb]];
-      double tr = 0.0, qd = 0.0;
-      for (int l = 0; l < d; ++l) {
-        for (int m = 0; m < d; ++m) {
-          tr += Sa[l * d + m] * Sb[m * d + l] * Tab[l * d + m];
-          for (int q = 0; q < d; ++q)
-            qd += Sa[l * d + m] * Sb[l * d + q] *
-                  K[l * mv_tri(d) + mv_ti(m, q, d)];
+          tv += tr;
         }
-        const double* fa = fv + (a * d + l) * c;
-        const double* fb = fv + (b * d + l) * c;
-        const double* Ql = s.Qi + l * c * c;
-        for (int i = 0; i < c; ++i)
-          for (int j = 0; j < c; ++j) qd -= fa[i] * Ql[i * c + j] * fb[j];
+        Tt[e] = tv;
       }
-      H[e] = 0.5 * tr - qd;
+      pf.mark(MV_PH_DERIV);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
+      // the Hessian, one entry a thread at a time
+      MV_TFOR(tm, e, p2 * p2) {
+        const int a = e / p2, b = e % p2;
+        const int ta = a < nv ? 1 : 0, tb = b < nv ? 1 : 0;
+        const double* Sa = St + (a % nv) * dd;
+        const double* Sb = St + (b % nv) * dd;
+        const double* Tab = Tt + (ta * 2 + tb) * dd;
+        const double* K = accB + PB.base[F.k[ta + tb]];
+        double tr = 0.0, qd = 0.0;
+        for (int l = 0; l < d; ++l) {
+          for (int m = 0; m < d; ++m) {
+            tr += Sa[l * d + m] * Sb[m * d + l] * Tab[l * d + m];
+            for (int q = 0; q < d; ++q)
+              qd += Sa[l * d + m] * Sb[l * d + q] *
+                    K[l * mv_tri(d) + mv_ti(m, q, d)];
+          }
+          const double* fa = fv + (a * d + l) * c;
+          const double* fb = fv + (b * d + l) * c;
+          const double* Ql = s.Qi + l * c * c;
+          for (int i = 0; i < c; ++i)
+            for (int j = 0; j < c; ++j) qd -= fa[i] * Ql[i * c + j] * fb[j];
+        }
+        H[e] = 0.5 * tr - qd;
+      }
+      pf.mark(MV_PH_DERIV);
+      tm.sync();
+      pf.mark(MV_PH_WAIT);
+      mv_t_invert(tm, p2, H, Hinv, &ctl.piv, fpiv);
+      pf.mark(MV_PH_INV);
     }
-    __syncthreads();
-    if (tid == 0) mv_invert(p2, H, Hinv);
-    __syncthreads();
-  }
-  if (tid == 0) {
-    mv_unpack(d, v, s.Vg, s.Ve);
-    for (int i = 0; i < dd; ++i) {
+    mv_t_unpack(tm, d, v, s.Vg, s.Ve);
+    MV_TFOR(tm, i, dd) {
       Vg_out[(long)lane * dd + i] = s.Vg[i];
       Ve_out[(long)lane * dd + i] = s.Ve[i];
     }
-    logl_out[lane] = logl;
-    for (int e = 0; e < p2 * p2; ++e)
-      Hvar_out[(long)lane * p2 * p2 + e] = -Hinv[e];
+    MV_TFOR(tm, e, p2 * p2) Hvar_out[(long)lane * p2 * p2 + e] = -Hinv[e];
+    if (tm.leader()) logl_out[lane] = ctl.logl;
+    pf.flush();
+    tm.sync();
   }
+}
+
+// the launch geometry of K11 at these sizes (mv_geom)
+template <typename T>
+__host__ inline MvGeom mv_nr_geom(int count, int n, int d, int c0, int r) {
+  const int c = c0 + r;
+  return mv_geom(count, n, d, c0, c, sizeof(T),
+                 mv_dyn(d, c) ? 0 : mv_nr_state(d, c));
 }
 
 #define MPH_NR_LAUNCH(name, T)                                               \
@@ -360,29 +388,31 @@ mph_nr_kernel(int reml, int max_iter, double prec, int n, int d, int c0,
       int reml, int max_iter, double prec, int S, int n, int d, int c0,      \
       int r, const void* eval, const void* X0, const void* Y, const void* R, \
       const void* Vg0, const void* Ve0, int vstride, void* Vg, void* Ve,     \
-      void* logl, void* Hvar, int s0, int count, void* scratch,              \
+      void* logl, void* Hvar, void* ctr, int s0, int count, void* scratch,   \
       void* stream) {                                                        \
     const int c = c0 + r;                                                    \
-    const bool dyn = mv_dyn(d, c);                                           \
-    auto kern = dyn ? mph_nr_kernel<T, 0, 0>                                 \
-                    : mph_nr_kernel<T, MV_MAX_D, MV_MAX_C>;                  \
-    const int smem = dyn && mv_st_smem(d, c)                                 \
-                         ? mv_nrow(d, c) * MV_CH * 8 : 0;                    \
-    if (smem > 0)                                                            \
-      cudaFuncSetAttribute(kern,                                             \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,      \
-                           smem);                                            \
+    const MvGeom g = mv_nr_geom<T>(count, n, d, c0, r);                      \
+    if (!mv_geom_ok(g, d, c)) return (int)cudaErrorInvalidValue;             \
+    auto kern = mv_dyn(d, c) ? mph_nr_kernel<T, 0, 0>                        \
+                             : mph_nr_kernel<T, MV_MAX_D, MV_MAX_C>;         \
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                         (int)g.bytes);                                      \
     if (count > 0)                                                           \
-      kern<<<count, MV_THREADS, smem, (cudaStream_t)stream>>>(               \
+      kern<<<(count + g.L - 1) / g.L, 32 * g.W * g.L, g.bytes,               \
+             (cudaStream_t)stream>>>(                                        \
           reml, max_iter, prec, n, d, c0, r, (const T*)eval, (const T*)X0,   \
           (const T*)Y, (const T*)R, (const double*)Vg0, (const double*)Ve0,  \
           vstride, (double*)scratch, (double*)Vg, (double*)Ve,               \
-          (double*)logl, (double*)Hvar, s0);                                 \
+          (double*)logl, (double*)Hvar, g, (int*)ctr, s0, count);            \
     return (int)cudaGetLastError();                                          \
   }                                                                          \
   extern "C" long name##_lane_bytes(int d, int c) {                          \
     return 8 * (mv_nr_scratch(d, c) +                                        \
                 (mv_dyn(d, c) ? mv_nr_dyn_extra(d, c) : 0));                 \
+  }                                                                          \
+  extern "C" long name##_geometry(int count, int n, int d, int c0, int r,    \
+                                  int what) {                                \
+    return mv_geom_field(mv_nr_geom<T>(count, n, d, c0, r), what);           \
   }
 
 // built once a precision (-DGT_ONLY=32 / 64, kernels.Kernel's `only`)

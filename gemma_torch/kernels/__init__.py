@@ -268,24 +268,25 @@ LM_TAIL_F64 = Kernel("lm_tail_f64", _LM_ARGS, _LM_REPLACES,
 # the mvLMM kernels K9-K11: the lane operands eval, X0 (c0, n), Y (d, n)
 # and R (S, r, n) in the operand type, starting values in float64 at a
 # lane stride (0 = shared), outputs float64
-# ...; then (s0, count, scratch): the lanes of the launch and the
-# run-time-sized form's scratch beyond d = 8 or 10 design rows (K11 and
-# K14 take scratch at every shape; launch_lanes)
+# ...; then the launch's lane counter (an int32 at 0, from which the
+# lanes' teams take them, as K3's) and (s0, count, scratch): the lanes of
+# the launch and the run-time-sized form's scratch beyond d = 8 or 10
+# design rows (K11 and K14 take scratch at every shape; launch_lanes)
 _EM_ARGS = (_I, _I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-            _P, _I, _P, _P, _P, _P, _P, _P) + _LANES
+            _P, _I, _P, _P, _P, _P, _P, _P, _P) + _LANES
 _EM_REPLACES = "gemma_tpu/models/mvlmm_core.py:225 mph_em"
 MPH_EM = Kernel("mph_em", _EM_ARGS, _EM_REPLACES, only=32)
 MPH_EM_F64 = Kernel("mph_em_f64", _EM_ARGS, _EM_REPLACES, source="mph_em",
                     only=64)
 _P_ARGS = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
-           _P, _P, _P, _P) + _LANES
+           _P, _P, _P, _P, _P) + _LANES
 _P_REPLACES = ("gemma_tpu/models/mvlmm_core.py:712 mph_calc_p + "
                "gemma_tpu/ops/stats.py:46 chisq_sf")
 MPH_CALC_P = Kernel("mph_calc_p", _P_ARGS, _P_REPLACES)
 MPH_CALC_P_F64 = Kernel("mph_calc_p_f64", _P_ARGS, _P_REPLACES,
                         source="mph_calc_p")
 _NR_ARGS = (_I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-            _P, _P, _P) + _LANES
+            _P, _P, _P, _P) + _LANES
 _NR_REPLACES = ("gemma_tpu/models/mvlmm_core.py:439 mph_nr (with "
                 "_nr_logl_fn :393, _is_pd :423)")
 MPH_NR = Kernel("mph_nr", _NR_ARGS, _NR_REPLACES, only=32)

@@ -472,13 +472,15 @@ def mph_em_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     logl = torch.empty(S, dtype=_F64, device=dev)
     done = torch.empty(S, dtype=torch.int32, device=dev)
     iters = torch.empty(S, dtype=torch.int32, device=dev)
+    ctr = torch.zeros(max(S, 1), dtype=torch.int32, device=dev)
     if S:
         kern.launch_lanes(dev, S, kern.lane_bytes(d, c), lambda s0, k, w: (
             int(reml), int(staged), int(max_iter), float(prec), S, n, d, c0,
             r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(), R.data_ptr(),
             Vg0.data_ptr(), Ve0.data_ptr(), vs, B0.data_ptr(), bs,
             Vg.data_ptr(), Ve.data_ptr(), B.data_ptr(), logl.data_ptr(),
-            done.data_ptr(), iters.data_ptr(), s0, k, w))
+            done.data_ptr(), iters.data_ptr(), ctr.data_ptr() + 4 * s0, s0,
+            k, w))
     return EmResult(Vg, Ve, B, logl, done.bool(), iters)
 
 
@@ -559,13 +561,15 @@ def mph_calc_p_cuda(eval_, X0, Y, R, Vg, Ve, logl1=None,
         kernels.check_operand(logl1, "logl1", _F64, (S,))
         p_lrt = torch.empty_like(stat)
         l1, l0 = logl1.data_ptr(), logl0.data_ptr()
+    ctr = torch.zeros(max(S, 1), dtype=torch.int32, device=dev)
     if S:
         kern.launch_lanes(dev, S, kern.lane_bytes(d, c0 + r),
                           lambda s0, k, w: (
             S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(),
             R.data_ptr(), Vg.data_ptr(), Ve.data_ptr(), vs, l1, l0, l0s,
             stat.data_ptr(), p.data_ptr(), beta.data_ptr(), Vbeta.data_ptr(),
-            0 if p_lrt is None else p_lrt.data_ptr(), s0, k, w))
+            0 if p_lrt is None else p_lrt.data_ptr(),
+            ctr.data_ptr() + 4 * s0, s0, k, w))
     return CalcP(stat, p, beta, Vbeta, p_lrt)
 
 
@@ -661,10 +665,13 @@ def nr_derivatives(reml: bool, eval_, X, Y, Vg, Ve):
 
 
 def mph_nr_plain(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
-                 Vg0, Ve0):
+                 Vg0, Ve0, stats: dict | None = None):
     """PyTorch version of K11: the reference's Newton-Raphson while-loop
     (mvlmm_core.py:475-525) with the closed-form derivatives of
-    `nr_derivatives`.  Returns (Vg, Ve, logl, Hvar = -H^-1)."""
+    `nr_derivatives`.  Returns (Vg, Ve, logl, Hvar = -H^-1).  Into
+    `stats`, where given, each lane's Newton iterations, likelihood
+    evaluations and derivative evaluations (S,) (the kernel's work on the
+    same lanes; no arithmetic changes)."""
     X = design(X0, R)
     S = X.shape[0]
     d = Y.shape[0]
@@ -683,9 +690,12 @@ def mph_nr_plain(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     grad = torch.zeros((S, p2), dtype=_F64, device=dev)
     Hinv = torch.eye(p2, dtype=_F64, device=dev).expand(S, p2, p2).clone()
     done = torch.zeros(S, dtype=torch.bool, device=dev)
+    n_it, n_lik, n_der = (torch.zeros(S, dtype=torch.int64, device=dev)
+                          for _ in range(3))
     for t in range(max_iter):
         if bool(done.all()):
             break
+        n_it += ~done
         v_save = pack(Vg, Ve)
         first = t == 0
         step = (Hinv @ grad[..., None])[..., 0]
@@ -695,6 +705,7 @@ def mph_nr_plain(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
         for i in range(10):
             if bool(accepted.all()):
                 break
+            n_lik += ~accepted
             v_try = v_save if first else v_save - (0.5 ** i) * step
             Vg_t, Ve_t = unpack(v_try)
             pd = _is_pd(Vg_t) & _is_pd(Ve_t)
@@ -717,12 +728,15 @@ def mph_nr_plain(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
         logl = torch.where(live, torch.where(revert, logl, logl_new), logl)
         Vg, Ve = unpack(v_out)
         upd = live & ~done_new
+        n_der += upd
         if bool(upd.any()):
             _, g, H = nr_derivatives(reml, eval_, X[upd], Y, Vg[upd],
                                      Ve[upd])
             grad[upd] = g
             Hinv[upd] = torch.linalg.inv_ex(H)[0]
         done = done_new
+    if stats is not None:
+        stats.update(iters=n_it, lik_evals=n_lik, der_evals=n_der)
     return Vg, Ve, logl, -Hinv
 
 
@@ -745,12 +759,14 @@ def mph_nr_cuda(reml: bool, max_iter: int, prec: float, eval_, X0, Y, R,
     Ve = torch.empty_like(Vg)
     logl = torch.empty(S, dtype=_F64, device=dev)
     Hvar = torch.empty((S, p2, p2), dtype=_F64, device=dev)
+    ctr = torch.zeros(max(S, 1), dtype=torch.int32, device=dev)
     if S:
         kern.launch_lanes(dev, S, kern.lane_bytes(d, c), lambda s0, k, w: (
             int(reml), int(max_iter), float(prec), S, n, d, c0, r,
             eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(), R.data_ptr(),
             Vg0.data_ptr(), Ve0.data_ptr(), vs, Vg.data_ptr(), Ve.data_ptr(),
-            logl.data_ptr(), Hvar.data_ptr(), s0, k, w))
+            logl.data_ptr(), Hvar.data_ptr(), ctr.data_ptr() + 4 * s0, s0, k,
+            w))
     return Vg, Ve, logl, Hvar
 
 

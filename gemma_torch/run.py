@@ -451,6 +451,28 @@ def _lmm_gene(cfg: GemmaConfig, log: RunLog, ds: Dataset, eval_, U, UtW,
 # (scripts/mvlmm_traits_f32_gap.py: within 4.8e-6 of float64 up to 8)
 _MV_F32_MAX_D = 8
 
+# rows of one GEMM of the mvLMM's rotation (_mv_rotate): the card's
+# smallest SNP block unless a run has fewer SNPs (_block_size)
+_MV_ROT_ROWS = 1024
+
+
+def _mv_rotate(x: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """x U, (k, n), in GEMMs of _MV_ROT_ROWS rows, the last padded with
+    zeros: a SNP's rotated row comes from one GEMM shape whatever its
+    block holds (the library picks its order of summation by shape), so
+    its mvLMM fit does not depend on the block or on -snps.  Beyond 8
+    traits the fits amplify that rounding to 1.6e-3 in p_wald (ROADMAP
+    §C20)."""
+    k, n = x.shape
+    out = torch.empty((k, U.shape[1]), dtype=x.dtype, device=x.device)
+    buf = x.new_zeros((_MV_ROT_ROWS, n))
+    for s in range(0, k, _MV_ROT_ROWS):
+        m = min(_MV_ROT_ROWS, k - s)
+        buf[:m] = x[s:s + m]
+        buf[m:] = 0
+        out[s:s + m] = (buf @ U)[:m]
+    return out
+
 
 def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
               device: str | torch.device = "cuda") -> dict:
@@ -510,15 +532,15 @@ def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
             raw = _raw_wire_block(ds, sel, bs, dtype, all_individuals=False)
             x = prologue(_to_device(raw, device), n, IMPUTE, dtype=dtype)[:k]
             if ds.gxe is None:
-                res = mvlmm_assoc(eval_, X0, Y, (x @ U).contiguous(), null,
+                res = mvlmm_assoc(eval_, X0, Y, _mv_rotate(x, U), null,
                                   cfg.a_mode, cfg, dtype)
             else:
                 # minor-allele coding where the imputed mean exceeds 1,
                 # and beta's sign restored (mvlmm.cpp:4254-4258)
                 flip = x.sum(dim=1, dtype=torch.float64) / n > 1.0
                 x = torch.where(flip[:, None], 2.0 - x, x)
-                res = mvlmm_assoc_gxe(eval_, X0, Y, (x @ U).contiguous(),
-                                      ((x * env) @ U).contiguous(), null,
+                res = mvlmm_assoc_gxe(eval_, X0, Y, _mv_rotate(x, U),
+                                      _mv_rotate(x * env, U), null,
                                       cfg.a_mode, cfg, dtype)
                 res["beta"] *= np.where(flip.cpu().numpy(), -1.0,
                                         1.0)[:, None]
@@ -535,7 +557,8 @@ def run_mvlmm(cfg: GemmaConfig, log: RunLog | None = None,
                           outs["p_lrt"], outs["p_score"])
     _summary(log, ds, cfg, ds.n_cvt, len(idx))
     log.write(f"{cfg.out_prefix()}.log.txt", cfg.a_mode, n_ph=d)
-    return dict(stats=outs, null=null, snp_indices=idx, dataset=ds)
+    return dict(stats=outs, null=null, snp_indices=idx, dataset=ds,
+                null_seconds=log.timer.minutes("null") * 60.0)
 
 
 # ---------------------------------------------------------------------------
