@@ -180,8 +180,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12
 # the FP64 tensor cores (DMMA, the data sheet's "FP64 Tensor Core"):
-# K16's float64 form runs there; every other float64 bound is the CUDA
-# cores' 34 TFLOP/s
+# K16's float64 form and K14's products run there; every other float64
+# bound is the CUDA cores' 34 TFLOP/s
 PEAK_F64_TC_PER_S = 67e12
 L2_FLUSH_BYTES = 64 << 20        # more than the H100's 50 MB L2
 # about 0.2 ms of the card's clock, which _time_device_ms checks is longer
@@ -339,6 +339,12 @@ S300_SMIN, S300_SMAX, S300_HOLD_ITERS = 200, 300, 20
 S300_DIST = 224
 CVT40_N, CVT40_SEED, CVT40_SNPS, CVT40_CHECK = 40, 40, 1024, 128
 CVT40_GXE_CHECK, CVT40_LANES, CVT40_GXE_LANES = 16, 128, 128
+# K2's warp form past its shared memory, where no path of this run takes
+# it: GRID_WIDE_N covariates (an intercept and seeded normal columns) on
+# the main block's first GRID_WIDE_LANES SNPs at every GRID_WIDE_STEP-th
+# grid point; its rows live in global scratch above 194 covariates, and
+# above 338 it reads the pivots' indices from the tables, not its labels
+GRID_WIDE_N, GRID_WIDE_LANES, GRID_WIDE_STEP = (200, 340), 2, 10
 # The ten-trait run's lanes: its null fits lie on the boundary (Vg of
 # rank 7-8; the ML Ve's two least eigenvalues ~1e-7, and the per-SNP REML
 # fits keep them), where the mvLMM's iterates amplify rounding (ROADMAP
@@ -1126,8 +1132,8 @@ def _hold_mv_block(blk, record, check, amax):
                       wline["capped_ml_kernel_VgVe_rel"])
         a = (True, D10_CAP, 0.0, ev, X0, Y, R, V, E, B)
         wline["split_launches_added"], wline["split_equal"] = _split_equal(
-            kernels, kernels.MPH_EM_F64, kernels.MPH_EM_F64.lane_bytes(d, c),
-            mvc.mph_em_cuda, a, mvc.mph_em_cuda(*a))
+            kernels, kernels.MPH_EM_F64, mvc.mph_em_cuda, a,
+            mvc.mph_em_cuda(*a))
         ok_cap = ok_cap and wline["split_equal"] \
             and wline["split_launches_added"] > 0
     else:
@@ -1228,8 +1234,7 @@ def _hold_mv_block(blk, record, check, amax):
         line["cpu_logl_max_rel_err"] = _mrel(nc[2].to(ev.device), nq[2])
         line["cpu_Hvar_max_rel_err"] = _mrel(nc[3].to(ev.device), nq[3])
         line["split_launches_added"], same = _split_equal(
-            kernels, kernels.MPH_NR_F64, kernels.MPH_NR_F64.lane_bytes(d, c),
-            mvc.mph_nr_cuda, a, nk)
+            kernels, kernels.MPH_NR_F64, mvc.mph_nr_cuda, a, nk)
         line["split_equal"] = same
         ok = (l_rel <= D10_LIM["nr_logl"] and h_rel <= D10_LIM["nr_Hvar"]
               and same and line["split_launches_added"] > 0)
@@ -1457,18 +1462,18 @@ def _hold_mv_geometry(kernels, check):
                               "violations": bad[:4]})
 
 
-def _split_equal(kernels, kern, lane_bytes, fn, args, whole):
-    """(launches that a split added, equal): fn(*args) with the scratch
-    budget at three lanes of lane_bytes, so that `kern` splits its lanes
-    into launches of three, against `whole`, the same call unsplit: every
+def _split_equal(kernels, kern, fn, args, whole):
+    """(launches that a split added, equal): fn(*args) with
+    kernels.split_lanes at three, so that `kern` splits its lanes into
+    launches of three, against `whole`, the same call unsplit: every
     output the same bit for bit, NaN where it is NaN."""
     import torch
     before = kern.splits
-    kernels.scratch_budget = 3 * lane_bytes
+    kernels.split_lanes = 3
     try:
         out = fn(*args)
     finally:
-        kernels.scratch_budget = None
+        kernels.split_lanes = None
     if isinstance(out, torch.Tensor):
         out, whole = (out,), (whole,)
     same = True
@@ -1481,6 +1486,45 @@ def _split_equal(kernels, kern, lane_bytes, fn, args, whole):
         else:
             same = same and torch.equal(x, y)
     return kern.splits - before, bool(same)
+
+
+def _hold_grid_wide(fac, x, fine_np, check):
+    """K2 against its plain version at each of GRID_WIDE_N covariates,
+    REML and ML, at K2's tolerance, from the float32 factors `fac` and the
+    genotypes x (S, n); the launch must take scratch."""
+    import torch
+    from gemma_torch import kernels
+    from gemma_torch.models.lmm import likelihood as lk
+    f32 = torch.float32
+    ev, U, _, y = fac
+    n, dev = ev.shape[0], ev.device
+    grid = fine_np[::GRID_WIDE_STEP]
+    lam_g = torch.as_tensor(grid, dtype=f32, device=dev)[:, None]
+    for nc in GRID_WIDE_N:
+        rng = np.random.default_rng(nc)
+        W = torch.as_tensor(np.column_stack(
+            [np.ones(n), rng.normal(size=(n, nc - 1))]), dtype=f32,
+            device=dev)
+        data = lk.build_batch_data(
+            ev, U.T @ W, U.T @ y, (x[:GRID_WIDE_LANES] @ U).contiguous(), nc)
+        gp = lk.grid_products(grid, data, nc)
+        lane_bytes = kernels.LAMBDA_GRID.lane_bytes(nc, len(grid))
+        for reml in (True, False):
+            d_k = lk.grid_epilogue_cuda(gp, n, nc, False, reml)
+            d_p, pms = _timed(lambda: lk.grid_epilogue_plain(gp, n, nc, False,
+                                                            reml))
+            bound = (1e-5 * d_p.abs().max()
+                     + 8 * n * torch.finfo(f32).eps / lam_g)
+            worst = float(((d_k - d_p).abs() / bound).max())
+            ms = time_ms(lambda: lk.grid_epilogue_cuda(gp, n, nc, False,
+                                                       reml), 3)
+            check("lambda_grid", worst <= 1.0 and lane_bytes > 0,
+                  {"block": f"wide_c{nc}", "fit": "reml" if reml else "ml",
+                   "max_abs_err": float((d_k - d_p).abs().max()),
+                   "max_err_over_bound": worst, "S": GRID_WIDE_LANES,
+                   "G": len(grid), "lane_bytes": lane_bytes, "ms": ms,
+                   "plain_ms": pms})
+        del data, gp
 
 
 def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
@@ -1533,15 +1577,22 @@ def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
 
 
 def _crt_work(S, d, c, n, isz):
-    """(bytes, float64 operations) K14 needs for S lanes: the lanes' rows
-    and parameters read once and the factors written; per individual the
-    staged Hi, R, P, Z P, F and the pass's sums, per lane the Gram blocks,
-    Y = Qi L' Z and the pair traces (csrc/calc_crt.cu)."""
-    vs, cd = d * (d + 1) // 2, c * d
-    per_k = (3 * d ** 3 + 2 * c * d * d + 6 * d ** 3 + 2 * vs * d * d * 4
-             + 3 * vs * vs * 3 + 2 * vs * d * cd * 5 + 4 * d * c * (c + 1))
-    per_lane = (2 * vs * cd * d * cd * (2 * d + 2)
-                + vs * (vs + 1) // 2 * (8 * d * cd + 8 * d * d + 24))
+    """(bytes, float64 operations, a multiply or an add each) that K14's
+    function needs for S lanes: the lanes' rows and parameters read once
+    and the factors written; per individual its Gram weights and blocks,
+    Hi, R, P, Z P and F, the rows P D_v Hi, and its share of the three
+    products over n (G_p = P' diag(δ^p) P, T_p = Hi' diag(δ^p) F, L_p =
+    X' diag(δ^p) W); per lane Qi, C = SS Z, Y = Qi (L' Z) as its two
+    products, and the pair traces (csrc/calc_crt.cu)."""
+    vs, cd, dd, tc = d * (d + 1) // 2, c * d, d * d, c * (c + 1) // 2
+    npair = vs * (vs + 1) // 2
+    # Hi, F, G_p and Qi are symmetric: each counts its entries on and
+    # above the diagonal only
+    per_k = 2 * (d * tc + vs * d + dd * c + 2 * dd * d + vs * d + 2 * vs * dd
+                 + dd * (dd + 1) + 3 * vs * vs + 2 * c * vs * dd)
+    per_lane = 2 * (cd * (cd + 1) // 2 * d
+                    + 2 * vs * (dd * d + cd * d * d + cd * cd * d)
+                    + npair * 4 * (d * cd + dd))
     nbytes = S * (isz * n + 8 * (2 * d * d + 4 * vs * vs + 3)) \
         + isz * (n + (c - 1) * n)
     return nbytes, S * (n * per_k + per_lane)
@@ -1559,6 +1610,30 @@ def _hold_crt(mv_ops, counts_f, record, check):
         _hold_crt_block(o, cnt, form, tag, of, record, check)
 
 
+def _crt_args(o, tag, max_lanes=None):
+    """K14's arguments on the lanes the -crt path `tag` refined (its
+    results' `refined` column; at most max_lanes of them), at their Newton
+    optima as the path reaches them (models/mvlmm.py refine), from the
+    operands `o` of that path's SNPs."""
+    import torch
+    from gemma_torch.config import GemmaConfig
+    from gemma_torch.models import mvlmm_core as mvc
+    from gemma_torch.models.mvlmm import _Iters
+    it = _Iters(GemmaConfig())
+    ev, X0, Y, R, nul = o["ev"], o["X0"], o["Y"], o["R1"], o["null"]
+    Vs, Es, B0 = (nul.Vg_start[None], nul.Ve_start[None],
+                  nul.B_start[None])
+    idx = torch.as_tensor(np.flatnonzero(
+        RESULTS[tag]["stats"]["refined"][:, 1])[:max_lanes],
+        device=R.device)
+    Ri = R[idx].contiguous()
+    em = mvc.mph_em(True, it.em_iter, it.em_prec, ev, X0, Y, Ri, Vs, Es,
+                    B0)
+    Vg2, Ve2, _, Hvar = mvc.mph_nr(True, it.nr_iter, it.nr_prec, ev, X0,
+                                   Y, Ri, em.Vg, em.Ve)
+    return ev, X0, Ri, Vg2, Ve2, Hvar
+
+
 def _hold_crt_block(o, cnt, form, tag, of, record, check, max_lanes=None,
                     witness=False):
     """K14 on the lanes the -crt path `tag` refined (its results'
@@ -1570,25 +1645,12 @@ def _hold_crt_block(o, cnt, form, tag, of, record, check, max_lanes=None,
     equal the unsplit call."""
     import torch
     from gemma_torch import kernels
-    from gemma_torch.config import GemmaConfig
     from gemma_torch.models import mvlmm_core as mvc
-    from gemma_torch.models.mvlmm import _Iters
-    it = _Iters(GemmaConfig())
-    ev, X0, Y, R, nul = o["ev"], o["X0"], o["Y"], o["R1"], o["null"]
-    Vs, Es, B0 = (nul.Vg_start[None], nul.Ve_start[None],
-                  nul.B_start[None])
     if not np.array_equal(RESULTS[tag]["snp_indices"],
                           RESULTS[of]["snp_indices"]):
         raise RuntimeError(f"{tag}: not the SNPs of the operands")
-    idx = torch.as_tensor(np.flatnonzero(
-        RESULTS[tag]["stats"]["refined"][:, 1])[:max_lanes],
-        device=R.device)
-    Ri = R[idx].contiguous()
-    em = mvc.mph_em(True, it.em_iter, it.em_prec, ev, X0, Y, Ri, Vs, Es,
-                    B0)
-    Vg2, Ve2, _, Hvar = mvc.mph_nr(True, it.nr_iter, it.nr_prec, ev, X0,
-                                   Y, Ri, em.Vg, em.Ve)
-    a = (ev, X0, Ri, Vg2, Ve2, Hvar)
+    a = _crt_args(o, tag, max_lanes)
+    ev, X0, Ri = a[:3]
     kk = mvc.calc_crt_cuda(*a)
     pp, pms = _timed(lambda: mvc.calc_crt_plain(*a))
 
@@ -1605,25 +1667,30 @@ def _hold_crt_block(o, cnt, form, tag, of, record, check, max_lanes=None,
 
     err, same = gap(kk)
     ms = time_ms(lambda: mvc.calc_crt_cuda(*a), 3)
-    S, n, d = Ri.shape[0], ev.shape[0], Y.shape[0]
+    S, n, d = Ri.shape[0], ev.shape[0], o["Y"].shape[0]
     c = X0.shape[0] + 1
+    # the scratch a lane takes, against its Python mirror
+    lane_bytes = kernels.CALC_CRT.lane_bytes(d, c, n)
     line = {"block": form or "snp", "S": S, "n": n, "d": d, "c": c,
             "max_rel_err": err, "same_finite": same,
-            "finite_lanes": float(torch.isfinite(kk[0]).double().mean())}
-    ok = err <= 1e-9 and same
+            "finite_lanes": float(torch.isfinite(kk[0]).double().mean()),
+            "lane_bytes": lane_bytes,
+            "lane_bytes_mirror": 8 * mvc.crt_layout(n, d, c)["len"]}
+    ok = (err <= 1e-9 and same
+          and line["lane_bytes"] == line["lane_bytes_mirror"])
     if witness:
         line["cpu_max_rel_err"], line["cpu_same_finite"] = gap(
             mvc.calc_crt_plain(*_cpu(a)))
         line["split_launches_added"], line["split_equal"] = _split_equal(
-            kernels, kernels.CALC_CRT, kernels.CALC_CRT.lane_bytes(d, c),
-            mvc.calc_crt_cuda, a, kk)
+            kernels, kernels.CALC_CRT, mvc.calc_crt_cuda, a, kk)
         line["tolerance"] = TOL_D10["calc_crt"]
         ok = (err <= D10_LIM["crt"] and same and line["split_equal"]
-              and line["split_launches_added"] > 0)
+              and line["split_launches_added"] > 0
+              and line["lane_bytes"] == line["lane_bytes_mirror"])
     check("calc_crt", ok, {**line, "ms": ms, "plain_ms": pms})
     nbytes, nops = _crt_work(S, d, c, n, ev.element_size())
     record("calc_crt", err, ms, pms, nbytes, nops,
-           peak=PEAK_F64_PER_S, launches=cnt, form=form,
+           peak=PEAK_F64_TC_PER_S, launches=cnt, form=form,
            tol=(TOL_D10["calc_crt"] if witness else TOL["calc_crt"])
            if form else None)
 
@@ -3097,7 +3164,9 @@ def main():
         shared by the lanes (0-d) or one per lane."""
         S_ = lk.n_lanes(data)
         C1, M = nc + 1, data.wy_prod.shape[-1]
-        ni = (nc + 3) * (nc + 2) // 2
+        # K2's recurrence entries: step p updates only the pairs a, b > p,
+        # the ones a later step or dev1 reads again
+        live = sum((nc + 2 - p) * (nc + 3 - p) // 2 for p in range(1, C1 + 1))
         opb = operand_bytes(data, 4)
         # the shared forms' K2-K4 launch on the main path (-gk + -lmm 1)
         main_path = {k: main_counts if form is None else counts
@@ -3124,11 +3193,10 @@ def main():
                    "block": label, "fit": tag, "S": S_, "G": G, "ms": ms,
                    "plain_ms": pms})
             if form == "c40" and reml:
-                # the GT_DYN form split into launches of three lanes
+                # the warp form split into launches of three lanes
                 added, same = _split_equal(
-                    kernels, kernels.LAMBDA_GRID,
-                    kernels.LAMBDA_GRID.lane_bytes(nc, G),
-                    lk.grid_epilogue_cuda, (gp, n, nc, False, reml), d_k)
+                    kernels, kernels.LAMBDA_GRID, lk.grid_epilogue_cuda,
+                    (gp, n, nc, False, reml), d_k)
                 check("lambda_grid", same and added > 0,
                       {"block": label, "fit": tag, "S": S_,
                        "split_launches_added": added, "split_equal": same})
@@ -3136,7 +3204,7 @@ def main():
                 record("lambda_grid", err, ms, pms,
                        4 * (gp.xcross.numel() + gp.xx.numel()
                             + gp.shared.numel() + 2 * G + G * S_),
-                       G * S_ * 2 * C1 * ni * 6,
+                       G * S_ * 2 * live * 6,
                        launches=main_path["lambda_grid"], form=form)
 
             # K3, from the kernel's d1f
@@ -3174,8 +3242,8 @@ def main():
                 # the GT_DYN form split into launches of three lanes
                 kern = kernels.LAMBDA_SOLVE
                 added, same = _split_equal(
-                    kernels, kern, kern.lane_bytes(nc, int(lk.per_lane(data))),
-                    opt.lambda_solve_cuda, args, (r_k.lam, r_k.logf))
+                    kernels, kern, opt.lambda_solve_cuda, args,
+                    (r_k.lam, r_k.logf))
                 check("lambda_solve", same and added > 0,
                       {"block": label, "fit": tag, "S": S_,
                        "split_launches_added": added, "split_equal": same})
@@ -3287,8 +3355,8 @@ def main():
             if form == "c40":
                 kern = kernels.LAMBDA_SOLVE_F64
                 added, same = _split_equal(
-                    kernels, kern, kern.lane_bytes(nc),
-                    opt.lambda_solve_f64_cuda, args, (r_k.lam, r_k.logf))
+                    kernels, kern, opt.lambda_solve_f64_cuda, args,
+                    (r_k.lam, r_k.logf))
                 check("lambda_solve_f64", same and added > 0,
                       {"block": label, "fit": tag, "S": S_,
                        "split_launches_added": added, "split_equal": same})
@@ -3412,6 +3480,7 @@ def main():
              counts_k["gxe40" if dt == f32 else "gxe40_f64"],
              form="gxe_c40")
         del data
+    _hold_grid_wide(fac[f32], xs[f32], fine_np, check)
 
     # the per-lane forms: the GxE block (each SNP's covariates [1, env,
     # x], the interaction as predictor, one ML null per SNP; the score at

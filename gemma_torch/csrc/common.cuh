@@ -19,8 +19,9 @@
 #include <math.h>
 #include <stdint.h>
 
-// The covariate kernels (K2-K8) are instantiated three times: for at
-// most GT_MAX_CVT covariates, the code they always ran; for at most
+// The covariate kernels K3-K8 are instantiated three times (K2 runs a
+// per-thread form up to GT_MAX_CVT and a warp form above, lambda_grid.cu):
+// for at most GT_MAX_CVT covariates, the code they always ran; for at most
 // GT_WIDE_CVT, which a launch takes only above GT_MAX_CVT; and, above
 // that, the form sized at run time (MC = GT_DYN), whose per-lane working
 // sets live in a per-lane slice of global scratch that the wrapper
@@ -267,21 +268,11 @@ __device__ inline void gt_pab_step(const PabTables& t, int ni, int p,
   }
 }
 
-// A row of one thread held in global scratch, entry k at p[k * st] (K2's
-// GT_DYN form: the threads of a launch interleave, so loads coalesce).
-struct GtStrided {
-  float* p;
-  long st;
-  __device__ __forceinline__ float& operator[](int k) const {
-    return p[(long)k * st];
-  }
-};
-
-// The same steps for one thread holding its rows in local arrays (R =
-// float*) or in global scratch (R = GtStrided).
-template <typename R>
+// The same steps for one thread holding its rows in local arrays (K2's
+// per-thread form).
 __device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
-                                         R pab, R ppab, R npab, R nppab) {
+                                         float* pab, float* ppab,
+                                         float* npab, float* nppab) {
   const int* aw = t.aw + (p - 1) * ni;
   const int* bw = t.bw + (p - 1) * ni;
   const int w = t.ww[p - 1];

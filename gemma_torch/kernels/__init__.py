@@ -50,10 +50,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the share of the card's free memory that the scratch of one split
 # launch may take (launch_lanes)
 SCRATCH_SHARE = 0.25
-# bytes that the scratch of one split launch may take; None: SCRATCH_SHARE
-# of the card's free memory at the launch.  chip_smoke.py sets a few
-# lanes' worth to hold a forced split against one unsplit call
-scratch_budget: int | None = None
+# lanes that one launch may take; None: as many as SCRATCH_SHARE of the
+# card's free memory holds the scratch of.  chip_smoke.py sets a few to
+# hold a forced split against one unsplit call
+split_lanes: int | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -174,20 +174,23 @@ class Kernel:
         launch's arguments for lanes [s0, s0 + count) and the address of
         a scratch of lane_bytes a lane.  Without scratch one launch takes
         every lane; with it the lanes are split into launches whose scratch
-        fits `scratch_budget` bytes (by default SCRATCH_SHARE of the
-        card's free memory), one scratch reused by all.  Lanes are
-        independent, so the split changes no lane's result."""
-        if not lane_bytes or not S:
+        fits SCRATCH_SHARE of the card's free memory, one scratch reused by
+        all.  Where `split_lanes` is set, no launch takes more lanes than
+        that.  Lanes are independent, so the split changes no lane's
+        result."""
+        if not S or not (lane_bytes or split_lanes):
             self.launch(device, *args(0, S, None))
             return
-        budget = scratch_budget or int(
-            torch.cuda.mem_get_info(device)[0] * SCRATCH_SHARE)
-        per = min(S, max(1, budget // lane_bytes))
-        scratch = torch.empty(lane_bytes * per, dtype=torch.uint8,
-                              device=device)
-        self.splits += run_lanes(S, lane_bytes, budget, lambda a, b:
-                                 self.launch(device, *args(
-                                     a, b - a, scratch.data_ptr()))) - 1
+        per, ptr = min(S, split_lanes or S), None
+        if lane_bytes:
+            free = torch.cuda.mem_get_info(device)[0]
+            per = min(per, max(1, int(free * SCRATCH_SHARE) // lane_bytes))
+            scratch = torch.empty(lane_bytes * per, dtype=torch.uint8,
+                                  device=device)
+            ptr = scratch.data_ptr()
+        # launches of `per` lanes each
+        self.splits += run_lanes(S, 1, per, lambda a, b: self.launch(
+            device, *args(a, b - a, ptr))) - 1
 
 
 def lane_ranges(S: int, lane_bytes: int, budget: int) -> list:

@@ -28,6 +28,12 @@ def ab_index(a: int, b: int, n_cvt: int) -> int:
     return (2 * cols - a + 2) * (a - 1) // 2 + (b - a)
 
 
+def _ab_index_many(a: np.ndarray, p: int, cols: int) -> np.ndarray:
+    """ab_index(a, p) for an array of labels a."""
+    lo, hi = np.minimum(a, p), np.maximum(a, p)
+    return (2 * cols - lo + 2) * (lo - 1) // 2 + (hi - lo)
+
+
 def n_index(n_cvt: int) -> int:
     return (n_cvt + 3) * (n_cvt + 2) // 2
 
@@ -76,11 +82,12 @@ def pab_indices(n_cvt: int) -> PabIndices:
     aw = np.zeros((n_steps, nidx), dtype=np.int32)
     bw = np.zeros((n_steps, nidx), dtype=np.int32)
     ww = np.zeros((n_steps,), dtype=np.int32)
+    la = np.array([a for a, _ in pairs])
+    lb = np.array([b for _, b in pairs])
     for p in range(1, n_steps + 1):
         ww[p - 1] = ab_index(p, p, n_cvt)
-        for k, (a, b) in enumerate(pairs):
-            aw[p - 1, k] = ab_index(a, p, n_cvt)
-            bw[p - 1, k] = ab_index(b, p, n_cvt)
+        aw[p - 1] = _ab_index_many(la, p, cols)
+        bw[p - 1] = _ab_index_many(lb, p, cols)
 
     wy_positions, wy_pairs = [], []
     xw_positions, xw_partners = [], []

@@ -889,6 +889,49 @@ def calc_crt_plain(eval_, X0, R, Vg, Ve, Hvar):
     return tuple(out)
 
 
+# K14's geometry (csrc/calc_crt.cu): product tiles of 32 x 32, build
+# blocks of four staged d x d arrays of at most 1,024 doubles each (and
+# the individuals' weights), four warps, shared memory up to 227 KB
+_CRT_TILE, _CRT_BUILD, _CRT_WARPS, _CRT_SMEM_MAX = 32, 1024, 4, 227 * 1024
+
+
+def crt_layout(n: int, d: int, c: int) -> dict:
+    """K14's per-lane layout at (n, d, c), as csrc/calc_crt.cu's CrtLay
+    computes it: the product families' rows and columns (`fr`, `fc`: L,
+    SS, T), their 32 x 32 tiles as (family, row tile, column tile) in
+    launch order, a build block's individuals `kb`, the scratch offsets
+    (doubles) and `len`, the doubles of a lane's scratch
+    (calc_crt_lane_bytes / 8)."""
+    vs, dd, cd, tc = d * (d + 1) // 2, d * d, c * d, c * (c + 1) // 2
+    npair = vs * (vs + 1) // 2
+    kb = max(1, _CRT_BUILD // dd)
+    nchunk = -(-n // kb)
+    fr, fc = [2 * c, 2 * dd, 3 * vs], [vs * dd, dd, vs]
+    T = _CRT_TILE
+    tiles = [(f, ti, tj) for f in range(3) for ti in range(-(-fr[f] // T))
+             for tj in range(-(-fc[f] // T))]
+    state = 5 * dd + d + d * c * c + 3 * d * c      # mvlmm_lane.cuh
+    pro_len = (state + 8 * dd + 5 * d + d * tc + _CRT_WARPS * (c * c + c)
+               + dd)
+    sizes = [("pro", pro_len), ("AD", dd + d), ("Wt", d * n),
+             ("Qi", cd * cd), ("Qs", d * cd), ("Z", dd), ("P", n * dd),
+             ("H", n * dd), ("F", n * dd), ("G", 2 * dd * dd),
+             ("T", 3 * vs * vs), ("L", 2 * vs * d * cd), ("C", 2 * vs * dd),
+             ("Ct", 2 * vs * dd), ("LZ", 2 * vs * cd * d),
+             ("Y", 2 * vs * cd * d), ("pair", 6 * npair)]
+    off, at = {}, 0
+    for name, size in sizes:
+        off[name] = at
+        at += size
+    build_len = 4 * kb * dd + kb * d
+    build_smem = 8 * build_len <= _CRT_SMEM_MAX
+    off["tmp"] = at
+    at += 0 if build_smem else build_len * nchunk
+    return dict(fr=fr, fc=fc, tiles=tiles, kb=kb, nchunk=nchunk,
+                npair=npair, pro_len=pro_len, build_smem=build_smem,
+                offsets=off, len=at)
+
+
 def calc_crt_cuda(eval_, X0, R, Vg, Ve, Hvar):
     """K14 on the card, float64 operands (-crt runs in float64); its
     per-lane sums live in a scratch the wrapper allocates, the lanes split
@@ -911,7 +954,7 @@ def calc_crt_cuda(eval_, X0, R, Vg, Ve, Hvar):
     out = torch.empty((3, S), dtype=_F64, device=dev)
     kern = kernels.CALC_CRT
     if S:
-        kern.launch_lanes(dev, S, kern.lane_bytes(d, c0 + r),
+        kern.launch_lanes(dev, S, kern.lane_bytes(d, c0 + r, n),
                           lambda s0, k, w: (
             S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(), R.data_ptr(),
             Vg.data_ptr(), Ve.data_ptr(), Hvar.data_ptr(), out.data_ptr(),

@@ -31,6 +31,16 @@ from gemma_torch.models.lmm.engine import assoc_block_impl, fit_null
 N, S = 400, 48
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers torch's default
+    pool oversubscribes the cores (tests/test_torch_mvlmm.py says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n_cvt, n=N, s=S, seed=5):
     rng = np.random.default_rng(seed)
     Xk = rng.binomial(2, 0.3, size=(2 * n + 100, n)).astype(np.float64)

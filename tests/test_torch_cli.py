@@ -19,6 +19,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from gemma_tpu.cli import parse_args as tpu_parse
 from gemma_tpu.run import batch_run as tpu_batch_run
@@ -27,6 +28,16 @@ from gemma_torch.run import batch_run as torch_batch_run
 from chip_smoke import _synth_plink
 
 N, P = 120, 300
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers torch's default
+    pool oversubscribes the cores (tests/test_torch_mvlmm.py says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_bimbam(td, n=N, p=P, seed=0):

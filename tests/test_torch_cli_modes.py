@@ -16,8 +16,19 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_cli import _assert_assoc_close, _run_both, _write_bimbam
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers torch's default
+    pool oversubscribes the cores (tests/test_torch_mvlmm.py says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

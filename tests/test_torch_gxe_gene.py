@@ -36,6 +36,16 @@ CASES = [(1, 1), (2, 2), (1, 3), (1, 4), (1, 9)]
 IDS = [f"c{c}-lmm{m}" for c, m in CASES]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers torch's default
+    pool oversubscribes the cores (tests/test_torch_mvlmm.py says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _problem(n_cvt, n=N, s=S, seed=11):
     rng = np.random.default_rng(seed + n_cvt)

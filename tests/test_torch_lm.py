@@ -27,6 +27,16 @@ N, S = 300, 64
 MODES = [51, 52, 53, 54]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers torch's default
+    pool oversubscribes the cores (tests/test_torch_mvlmm.py says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n_cvt, n=N, s=S, seed=3):
     rng = np.random.default_rng(seed + n_cvt)
     y = rng.normal(size=n) + 3.0                 # a phenotype off zero

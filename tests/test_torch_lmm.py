@@ -39,6 +39,16 @@ DT = {"f64": (np.float64, jnp.float64, torch.float64),
       "f32": (np.float32, jnp.float32, torch.float32)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside the other test workers torch's default
+    pool oversubscribes the cores (tests/test_torch_mvlmm.py says why)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(n_cvt, seed=5):
     rng = np.random.default_rng(seed)
     Xk = rng.binomial(2, 0.3, size=(500, N)).astype(np.float64)
