@@ -345,6 +345,18 @@ CVT40_GXE_CHECK, CVT40_LANES, CVT40_GXE_LANES = 16, 128, 128
 # grid point; its rows live in global scratch above 194 covariates, and
 # above 338 it reads the pivots' indices from the tables, not its labels
 GRID_WIDE_N, GRID_WIDE_LANES, GRID_WIDE_STEP = (200, 340), 2, 10
+# K4-K6 past the shapes the paths give them: TAIL_WIDE_N covariates (an
+# intercept and seeded normal columns) on the main block's first
+# TAIL_WIDE_LANES SNPs (a tile of 8 lanes and part of another), and as
+# a -gxe block (TAIL_WIDE_N - 2 columns, env and x) on the first
+# TAIL_WIDE_GXE_LANES, at seeded λ.  There K4/K5 stage each chunk's
+# columns of a pass at a stride (float64 past ~69 covariates, float32
+# past ~100) and read the recurrence's pivots from the tables (past ~88);
+# At TAIL_WIDE_LRT_N (K6 alone, shared operands) K6 keeps each lane's
+# solution in its scratch and its residual pass reads [W, y] from device
+# memory, past the 319 covariates whose chunks it stages.
+TAIL_WIDE_N, TAIL_WIDE_LANES, TAIL_WIDE_GXE_LANES = (120, 200), 10, 3
+TAIL_WIDE_LRT_N = 400
 # The ten-trait run's lanes: its null fits lie on the boundary (Vg of
 # rank 7-8; the ML Ve's two least eigenvalues ~1e-7, and the per-SNP REML
 # fits keep them), where the mvLMM's iterates amplify rounding (ROADMAP
@@ -1412,6 +1424,176 @@ def _hold_search_layout(kernels, check):
                               "differ": bad[:4]})
 
 
+# K4-K6's launch layout (csrc/test_sums.cuh ts_layout) in Python, held
+# equal to the kernels' own size functions on the card (_hold_tail_layout)
+# and used by tests/test_torch_test_tails.py.  The launch forms: a warp a lane up to 16 sums a lane, a tile of 8 lanes
+# on DMMA (shared operands), a block a lane (per-lane operands)
+TAIL_REG, TAIL_MMA, TAIL_LANE = 0, 1, 2
+# what a launch sums: K4/K5's rows, K6's alternative or null model
+TAIL_TEST, TAIL_LRT, TAIL_LRT_NULL = 0, 1, 2
+_TS = dict(threads=256, reg_q=16, lanes=8, km=32, kl=16, rc=64, tpw=10,
+           qpt=3, stage=160 * 1024, lab_max=16 * 1024, wide_cvt=32)
+
+
+def _r16(b):
+    return (b + 15) // 16 * 16
+
+
+def _r8(v):
+    return (v + 7) // 8 * 8
+
+
+def tail_form(n_cvt, shared_ops):
+    """The launch form of K4-K6 at n_cvt covariates (ts_form)."""
+    C1 = n_cvt + 1
+    Q = C1 * (C1 + 1) // 2 + C1 + 1
+    return (TAIL_REG if Q <= _TS["reg_q"] else
+            TAIL_MMA if shared_ops else TAIL_LANE)
+
+
+def tail_layout(n_cvt, form, kind, tsize):
+    """ts_layout: a launch's geometry, its dynamic shared memory (`bytes`)
+    and a lane's scratch above 32 covariates (`lane_bytes`)."""
+    C1 = n_cvt + 1
+    M = C1 * (C1 + 1) // 2
+    Q = M + C1 + 1
+    CZ = n_cvt if kind == TAIL_LRT_NULL else C1
+    xc = 0 if kind == TAIL_LRT_NULL else C1
+    dyn = n_cvt > _TS["wide_cvt"]
+    mma = form == TAIL_MMA
+    lanes = {TAIL_REG: _TS["threads"] // 32, TAIL_MMA: _TS["lanes"],
+             TAIL_LANE: 1}[form]
+    Mp = _r8(M) if mma else M
+    Qp = Mp + _r8(xc) if mma else M + xc
+    pcols = min(Qp, _TS["threads"] // 32 * _TS["tpw"] * 8 if mma
+                else _TS["threads"] * _TS["qpt"])
+    isz = tsize if kind == TAIL_TEST else 4
+    row = M + C1 if kind == TAIL_TEST else C1
+    kc = _TS["km"] if mma else _TS["kl"]
+    while kc > 4 and 2 * kc * row * isz > _TS["stage"]:
+        kc //= 2
+    raw = 2 * kc * row * isz <= _TS["stage"]
+    pc8 = _r8(pcols)
+    bst = 0 if raw else (pc8 + 4 if tsize == 8
+                         else pc8 + (8 if pc8 % 16 == 0 else 0))
+    if not raw:
+        kc = _TS["kl"]
+    bsz = kc * row if raw else kc * bst
+    lane_set = (_r16(Q * tsize) if kind == TAIL_TEST else
+                _r16(8 * (Q + 1)) + _r16(8 * (M + C1)))
+    sets = 0 if dyn else lanes * lane_set
+    lab = kind == TAIL_TEST and 4 * Q <= _TS["lab_max"]
+    o = _r16(4 * Q) if lab else 0
+    # K6's residual chunks of TS_RC rows where two fit, else none (and
+    # each lane's solution in its scratch)
+    rc = _TS["rc"] if 2 * _TS["rc"] * C1 * 4 <= _TS["stage"] else 0
+    o += 0 if kind == TAIL_TEST or (mma and rc == 0) else _r16(8 * lanes * CZ)
+    if form == TAIL_REG:
+        nbytes = o + sets
+    else:
+        o += sets if form == TAIL_LANE else 0
+        base = o
+        o += _r16(8 * 2 * 2 * (_TS["km"] * (_TS["lanes"] + 4) if mma
+                               else _TS["kl"]))
+        o += _r16(2 * bsz * isz)
+        nbytes = o
+        if mma:
+            p3 = 0 if kind == TAIL_TEST else base + _r16(4 * 2 * rc * C1)
+            nbytes = max(nbytes, base + sets, p3)
+    return dict(form=form, lanes=lanes, kc=kc, raw=raw, lab=lab, Mp=Mp, Qp=Qp,
+                pcols=pcols, passes=-(-Qp // pcols), bst=bst, dyn=dyn, rc=rc,
+                bytes=nbytes, lane_set=lane_set,
+                lane_bytes=lane_set if dyn else 0)
+
+
+def _hold_tail_layout(kernels, check):
+    """K4-K6's launch layout as the kernels' own <name>_smem_bytes,
+    <name>_lane_bytes and lrt_tail_null_bytes give it, every form and
+    kind, c up to K6's 5,119: equal to tail_layout's, every block within
+    the card's 227 KB, scratch a lane exactly above 32 covariates, the
+    single-lane null's scratch, and a budget of three lanes' scratch
+    splitting a block into launches that take every lane once."""
+    from gemma_torch.kernels import lane_ranges
+    bad = []
+    cs = list(range(0, 42)) + [64, 100, 120, 200, 319, 320, 500, 1000, 3000,
+                               5119]
+    for c in cs:
+        sizes = []
+        for kern, tsize in ((kernels.WALD_TAIL, 4), (kernels.WALD_TAIL_F64, 8),
+                            (kernels.SCORE_TAIL, 4),
+                            (kernels.SCORE_TAIL_F64, 8)):
+            sizes += [(kern.name, sh, kern.query("smem_bytes", c, sh),
+                       kern.lane_bytes(c), tail_layout(
+                           c, tail_form(c, sh), TAIL_TEST, tsize))
+                      for sh in (0, 1)]
+        sizes += [("lrt_tail", sh, kernels.LRT_TAIL.query(
+            "smem_bytes", c, sh, null), kernels.LRT_TAIL.lane_bytes(c),
+            tail_layout(c, tail_form(c, sh),
+                        TAIL_LRT_NULL if null else TAIL_LRT, 8))
+                  for sh in (0, 1) for null in (0, 1)]
+        for name, sh, smem, lb, mirror in sizes:
+            if not (0 < smem <= 227 * 1024 and (lb > 0) == (c > 32)
+                    and smem == mirror["bytes"]
+                    and lb == mirror["lane_set"] * mirror["dyn"]):
+                bad.append((name, c, sh, smem, lb, mirror["bytes"]))
+            for S in ((1, 3, 16, 64) if lb > 0 else ()):
+                rs = lane_ranges(S, lb, 3 * lb)
+                if ([i for a, e in rs for i in range(a, e)] != list(range(S))
+                        or any(e - a > 3 for a, e in rs)):
+                    bad.append((name, c, S, "lane_ranges"))
+        if kernels.LRT_TAIL.query("null_bytes", c, MOUSE_N) <= 0:
+            bad.append(("lrt_tail null_bytes", c))
+    for name in ("wald_tail", "score_tail", "lrt_tail"):
+        check(name, not bad, {"layout_mirror_equal_and_fits": not bad,
+                              "violations": bad[:4]})
+
+
+# the bound of K4-K6 (chip_smoke's record): what the design does, the
+# sums' products at the FP64 tensor cores' rate, the rest at the CUDA
+# cores', each lane's operands read once
+TAIL_BOUND_NOTE = ("bound: the sums' float64 products at 67 TFLOP/s "
+                   "(DMMA), the rest (weights, logs, the recurrence or the "
+                   "factor, K6's residual pass) at 34; bytes: one read of "
+                   "eval, [W, y], wy_prod (K4/K5) and Utx, shared ones once")
+
+
+def _tail_work(data, nc, isz, lam_n, lrt=False, null_lanes=0):
+    """(bytes, operations at the DMMA rate) of one call of K4/K5 (or K6's
+    speed mode, with its null launch over null_lanes lanes): the sums'
+    products 2 n Q a lane at 67 TFLOP/s, the weights (4 an individual a
+    lane, K6 a log more), the recurrence's live entries (3 operations
+    each, K4/K5) or the factor (CZ³/3) and the residual pass (2 C1 + 6 an
+    individual, K6) at 34 TFLOP/s, counted at 67 as twice as many."""
+    from gemma_torch.models.lmm import likelihood as lk
+    S, n = lk.n_lanes(data), data.eval.shape[0]
+    C1 = nc + 1
+    M = C1 * (C1 + 1) // 2
+    Q = M + C1 + 1
+    rate = PEAK_F64_TC_PER_S / PEAK_F64_PER_S
+    if not lrt:
+        live = sum((nc + 2 - p) * (nc + 3 - p) // 2 for p in range(1, C1))
+        nb = isz * sum(t.numel() for t in (data.eval, data.UtWy,
+                                           data.wy_prod, data.Utx))
+        nb += isz * (lam_n + 3 * S)
+        return nb, S * (2 * n * Q + rate * (4 * n + 3 * live + 300))
+    nb = 4 * (data.eval.numel() + data.UtWy.numel() + data.Utx.numel()
+              + S + null_lanes) + 8 * 2 * S + 8 * null_lanes
+    ops = 0.0
+    for lanes, CZ, q in ((S, C1, Q), (null_lanes, nc, M)):
+        ops += lanes * (2 * n * q + rate * (n * (5 + 2 * C1 + 6)
+                                            + CZ ** 3 / 3 + 300))
+    return nb, ops
+
+
+def _hold_tail_split(kernels, kern, fn, args, whole, name, label, check):
+    """K4-K6 split into launches of three lanes against the unsplit
+    call: every output the same bit for bit."""
+    added, same = _split_equal(kernels, kern, fn, args, whole)
+    check(name, same and added > 0,
+          {"block": label, "split_launches_added": added,
+           "split_equal": same})
+
+
 def _hold_mv_geometry(kernels, check):
     """K9-K11's launch geometry and lane scratch as the kernels' own
     <name>_geometry and <name>_lane_bytes give them, d = 2..10, c =
@@ -1525,6 +1707,112 @@ def _hold_grid_wide(fac, x, fine_np, check):
                    "G": len(grid), "lane_bytes": lane_bytes, "ms": ms,
                    "plain_ms": pms})
         del data, gp
+
+
+def _hold_lrt_wide(label, data, nc, lam, l0, check):
+    """K6's speed mode on one wide float32 block: the null launch (one
+    shared lane split over n, or a null per lane) against the float64
+    logf_stable, then the SNP launch against its plain version."""
+    from gemma_torch import kernels
+    from gemma_torch.models.lmm import likelihood as lk
+    d64 = data._replace(eval=data.eval.double(), UtWy=data.UtWy.double(),
+                        Utx=data.Utx.double())
+    l0_p = lk.logf_stable(l0.double().reshape(-1), d64, nc, True, False)
+    l0_k = lk.lrt_null_cuda(l0, data, nc)
+    null_rel = float(((l0_k - l0_p).abs() / l0_p.abs()).max())
+    l_k, p_k = lk.lrt_pvalues_cuda(lam, None, data, nc, l0, None)
+    l_p, p_p = lk.lrt_pvalues_plain(lam, None, data, nc, l0, None)
+    logl_rel = float(((l_k.double() - l_p.double()).abs()
+                      / l_p.double().abs()).max())
+    err = float((p_k - p_p).abs().max())
+    ms = time_ms(lambda: lk.lrt_pvalues_cuda(lam, None, data, nc, l0, None),
+                 3)
+    lane_bytes = kernels.LRT_TAIL.lane_bytes(nc)
+    check("lrt_tail", null_rel <= 1e-12 and logl_rel <= 1e-12
+          and err <= 1e-6 and lane_bytes > 0,
+          {"mode": "speed", "block": label, "S": lk.n_lanes(data),
+           "max_abs_err": err, "logl_max_rel": logl_rel,
+           "null_logl_max_rel": null_rel, "lane_bytes": lane_bytes,
+           "ms": ms})
+
+
+def _hold_tail_wide(fac, xs, env, check):
+    """K4, K5 (both precisions) and K6's speed mode against their plain
+    versions at each of TAIL_WIDE_N covariates, shared operands and a
+    -gxe block, and K6 alone on shared operands at TAIL_WIDE_LRT_N; at
+    seeded λ, from the factors `fac`, the genotypes `xs` and env (n,) of
+    each precision, at the c >= 24 forms' tolerances (TOL_LANE; float64
+    TOL); the launches must take scratch."""
+    import torch
+    from gemma_torch import kernels
+    from gemma_torch.models.lmm import likelihood as lk
+    from gemma_torch.models.lmm.engine import gxe_batch_data
+    f32, f64 = torch.float32, torch.float64
+    n = fac[f32][0].shape[0]
+    for nc in TAIL_WIDE_N + (TAIL_WIDE_LRT_N,):
+        rng = np.random.default_rng(nc)
+        W = np.column_stack([np.ones(n), rng.normal(size=(n, nc - 1))])
+        lam_np = 10.0 ** rng.uniform(-1.5, 1.5, TAIL_WIDE_LANES)
+        lrt_only = nc == TAIL_WIDE_LRT_N
+        for dt in (f32,) if lrt_only else (f32, f64):
+            ev, U, _, y = fac[dt]
+            dev = ev.device
+            Wd = torch.as_tensor(W, dtype=dt, device=dev)
+            Uty = U.T @ y
+            x = xs[dt]
+            lam = torch.as_tensor(lam_np, dtype=dt, device=dev)
+            if lrt_only:
+                # K6 reads no wy_prod: the block without it
+                data = lk.LmmBatchData(
+                    eval=ev, UtWy=torch.cat([U.T @ Wd, Uty[:, None]],
+                                            dim=1).contiguous(),
+                    wy_prod=ev[:, None][:, :0],
+                    Utx=(x[:TAIL_WIDE_LANES] @ U).contiguous(),
+                    iab_logdiag=None)
+                _hold_lrt_wide(f"wide_c{nc}", data, nc, lam, lam[:1] * 1.1,
+                               check)
+                del data
+                continue
+            env_d = torch.as_tensor(env, dtype=dt, device=dev)
+            xg = x[:TAIL_WIDE_GXE_LANES]
+            blocks = (
+                (f"wide_c{nc}", lk.build_batch_data(
+                    ev, U.T @ Wd, Uty, (x[:TAIL_WIDE_LANES] @ U).contiguous(),
+                    nc)),
+                (f"gxe_wide_c{nc}", gxe_batch_data(
+                    ev, U.T @ Wd[:, :nc - 2], U.T @ env_d, Uty, xg @ U,
+                    (xg * env_d) @ U, nc - 2)))
+            for label, data in blocks:
+                S = lk.n_lanes(data)
+                sfx = "" if dt == f32 else "_f64"
+                for name, fk, fp, lm in (
+                        ("wald_tail", lk.wald_pvalues_cuda,
+                         lk.wald_pvalues_plain, lam[:S]),
+                        ("score_tail", lk.score_pvalues_cuda,
+                         lk.score_pvalues_plain, lam[:1])):
+                    kern = getattr(kernels, (name + sfx).upper())
+                    b_k, s_k, p_k = fk(lm, data, nc)
+                    b_p, s_p, p_p = fp(lm, data, nc)
+                    ok = torch.isfinite(p_p) & torch.isfinite(s_p)
+                    err = float((p_k[ok] - p_p[ok]).abs().max())
+                    beta_se = float(((b_k - b_p).abs() / s_p)[ok].max())
+                    same_nan = bool((torch.isnan(p_k)
+                                     == torch.isnan(p_p)).all())
+                    tol_p, tol_b = (3e-5, 1e-3) if dt == f32 else (1e-10,
+                                                                   1e-8)
+                    ms = time_ms(lambda: fk(lm, data, nc), 3)
+                    check(name + sfx,
+                          err <= tol_p and beta_se <= tol_b and same_nan
+                          and bool(ok.any()) and kern.lane_bytes(nc) > 0,
+                          {"block": label, "S": S, "max_abs_err": err,
+                           "beta_max_err_over_se": beta_se,
+                           "finite_lanes": int(ok.sum()),
+                           "lane_bytes": kern.lane_bytes(nc), "ms": ms})
+                if dt == f32:
+                    l0 = lam[:1] * 1.1 if data.UtWy.dim() == 2 \
+                        else lam[:S] * 1.1
+                    _hold_lrt_wide(label, data, nc, lam[:S], l0, check)
+            del blocks, data
 
 
 def _hold_mvlmm(mv_ops, counts_f, record, check, amax):
@@ -3113,8 +3401,9 @@ def main():
                                              for p, v in paths.items()}})
 
     def check(name, passed, line):
-        tol = TOL_LANE.get(name) if "block" in line and line["block"] in (
-            "gxe", "gene", "c24", "gxe_c24", "c40", "gxe_c40") else None
+        tol = TOL_LANE.get(name) if "block" in line and (line["block"] in (
+            "gxe", "gene", "c24", "gxe_c24", "c40", "gxe_c40")
+            or "wide_c" in line["block"]) else None
         line = {"kernel": name, "tolerance": tol or TOL[name], **line}
         _say(line)
         if not passed:
@@ -3278,10 +3567,15 @@ def main():
             check(name, err <= (3e-5 if form else 1e-5) and beta_se <= 1e-3,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
                    "block": label, "S": S_, "ms": ms, "plain_ms": pms})
+            if form == "c40":
+                _hold_tail_split(kernels, getattr(kernels, name.upper()),
+                                 fk, (lam, data, nc), (b_k, s_k, p_k),
+                                 name, label, check)
             if rec:
-                record(name, err, ms, pms, opb + 4 * (S_ + 3 * S_),
-                       2 * S_ * n * (M + C1 + 2), form=form,
-                       launches=main_path.get(name, counts))
+                nb, nops = _tail_work(data, nc, 4, lam.numel())
+                record(name, err, ms, pms, nb, nops, peak=PEAK_F64_TC_PER_S,
+                       form=form, launches=main_path.get(name, counts),
+                       note=TAIL_BOUND_NOTE)
 
         # K6, speed mode: at the kernel's ML λ and the null's
         ml = lam_k["ml"]
@@ -3294,30 +3588,45 @@ def main():
             ml.lam, ml.logf, data, nc, l0, logl0), 20)
         pms = time_ms(lambda: lk.lrt_pvalues_plain(
             ml.lam, ml.logf, data, nc, l0, logl0), 3)
-        # the library's tail alone on the same Δ
+        # the null launch apart (one shared lane split over n, or a null
+        # per lane), held against the plain logf_stable, then the SNP
+        # launch alone on its logl_H0
         d64 = data._replace(eval=data.eval.double(), UtWy=data.UtWy.double(),
                             Utx=data.Utx.double())
+        l0_p = lk.logf_stable(l0.double().reshape(-1), d64, nc, True, False)
+        l0_k = lk.lrt_null_cuda(l0, data, nc)
+        null_rel = float(((l0_k - l0_p).abs() / l0_p.abs()).max())
+        null_ms = time_ms(lambda: lk.lrt_null_cuda(l0, data, nc), 20)
+        snp_ms = time_ms(lambda: lk.lrt_pvalues_cuda(
+            ml.lam, ml.logf, data, nc, None, l0_k), 20)
+        check("lrt_tail", null_rel <= 1e-12,
+              {"mode": "speed", "launch": "null", "logl_max_rel": null_rel,
+               "block": label, "S": l0.numel(), "ms": null_ms})
+        # the library's tail alone on the same Δ
         delta = (lk.logf_stable(ml.lam.double(), d64, nc, False, False)
-                 - lk.logf_stable(l0.double().reshape(-1), d64, nc, True,
-                                  False))
+                 - l0_p)
         lib_ms = time_ms(lambda: torch.special.gammaincc(
             torch.full_like(delta, 0.5), delta.clamp(min=0.0)), 20)
         check("lrt_tail", err <= 1e-6 and logl_rel <= 1e-12,
               {"mode": "speed", "max_abs_err": err, "logl_max_rel": logl_rel,
-               "block": label, "S": S_, "ms": ms, "plain_ms": pms,
+               "block": label, "S": S_, "ms": ms, "null_ms": null_ms,
+               "snp_ms": snp_ms, "plain_ms": pms,
                "library_ms_gammaincc": lib_ms})
+        if form == "c40":
+            _hold_tail_split(kernels, kernels.LRT_TAIL, lk.lrt_pvalues_cuda,
+                             (ml.lam, ml.logf, data, nc, None, l0_k),
+                             (l_k, p_k), "lrt_tail", label, check)
         if rec:
-            nG = C1 * (C1 + 1) // 2
-            passes = 1 if l0.numel() == 1 else 2     # per-lane null too
-            record("lrt_tail", err, ms, pms,
-                   4 * (data.eval.numel() + data.UtWy.numel()
-                        + data.Utx.numel() + S_) + 8 * 2 * S_,
-                   passes * S_ * n * (3 * (nG + C1) + 8 + 2 * C1),
-                   peak=PEAK_F64_PER_S, launches=counts, library_ms=lib_ms,
+            nb, nops = _tail_work(data, nc, 4, S_, lrt=True,
+                                  null_lanes=l0.numel())
+            record("lrt_tail", err, ms, pms, nb, nops,
+                   peak=PEAK_F64_TC_PER_S, launches=counts,
+                   library_ms=lib_ms,
                    note="library_ms is torch.special.gammaincc(0.5, Δ) on "
                         "the same Δ: the tail alone; the kernel also "
-                        "re-evaluates both ML log-likelihoods in float64",
-                   form=form)
+                        "re-evaluates both ML log-likelihoods in float64. "
+                        + TAIL_BOUND_NOTE,
+                   form=form, extra={"null_ms": null_ms, "snp_ms": snp_ms})
 
     def hold64(label, data, nc, l_score, l0, logl0, counts, form=None,
                rec=True):
@@ -3394,10 +3703,14 @@ def main():
                   and p_k.dtype == f64,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
                    "block": label, "S": S_, "ms": ms, "plain_ms": pms})
+            if form == "c40":
+                _hold_tail_split(kernels, getattr(kernels, name.upper()),
+                                 fk, (lam, data, nc), (b_k, s_k, p_k),
+                                 name, label, check)
             if rec:
-                record(name, err, ms, pms, opb + 8 * (S_ + 3 * S_),
-                       2 * S_ * n * (M + C1 + 2), peak=PEAK_F64_PER_S,
-                       launches=counts, form=form)
+                nb, nops = _tail_work(data, nc, 8, lam.numel())
+                record(name, err, ms, pms, nb, nops, peak=PEAK_F64_TC_PER_S,
+                       launches=counts, form=form, note=TAIL_BOUND_NOTE)
         ml = fits["ml"]
         l_k, p_k = lk.lrt_pvalues_cuda(ml.lam, ml.logf, data, nc, l0, logl0)
         l_p, p_p = lk.lrt_pvalues_plain(ml.lam, ml.logf, data, nc, l0, logl0)
@@ -3481,6 +3794,7 @@ def main():
              form="gxe_c40")
         del data
     _hold_grid_wide(fac[f32], xs[f32], fine_np, check)
+    _hold_tail_wide(fac, xs, env_np[ds.indicator_idv], check)
 
     # the per-lane forms: the GxE block (each SNP's covariates [1, env,
     # x], the interaction as predictor, one ML null per SNP; the score at
@@ -3555,6 +3869,7 @@ def main():
                    form="c24" if c24 else "c40" if c40 else "gene" if gene
                    else None)
     _hold_search_layout(kernels, check)
+    _hold_tail_layout(kernels, check)
     _hold_mv_geometry(kernels, check)
     _hold_mixed(check, amax)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)

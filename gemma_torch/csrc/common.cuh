@@ -1,7 +1,6 @@
 // Shared pieces of the gemma_torch kernels: the Pab index tables, block
-// reductions over the individual axis, the covariate-elimination
-// recurrences (GEMMA CalcPab/CalcPPab/CalcPPPab, lmm.cpp:283-482) and the
-// per-SNP test rows that K4 and K5 read.
+// reductions over the individual axis and the covariate-elimination
+// recurrences (GEMMA CalcPab/CalcPPab/CalcPPPab, lmm.cpp:283-482).
 //
 // The templates take the working scalar type T: float in the speed mode,
 // double in the parity mode; the float instantiations are the arithmetic
@@ -53,6 +52,12 @@
 #define GT_PC_DEV 9      // dev1 / dev12 evaluations
 #define GT_PC_LOGF 10    // logf evaluations (logdet0 included)
 #define GT_PC_STEPS 11   // block steps (evaluation rounds of a block)
+// the test kernels' phases (K4-K6; scripts/k4_k6_phase_profile.py)
+#define TT_PH_WEIGHTS 0  // each lane's weights h and h·x
+#define TT_PH_SUMS 1     // the sums over n (staging and products)
+#define TT_PH_POST 2     // the Pab recurrence (K4, K5) or the factor (K6)
+#define TT_PH_RESID 3    // the residual pass (K6)
+#define TT_PH_TAIL 4     // the F or chi-square tail and the stores
 #ifdef GT_PROFILE
 __device__ unsigned long long gt_prof[16];
 __device__ __forceinline__ long long& gt_prof_last() {
@@ -111,18 +116,6 @@ __host__ __device__ inline int gt_form(int n_cvt) {
 
 __host__ __device__ inline long gt_r16(long b) { return (b + 15) / 16 * 16; }
 
-// A bump allocator over one lane's slice of global scratch (the GT_DYN
-// forms): take(k) returns the next k values of type U, 16-byte aligned.
-struct GtCarve {
-  unsigned char* p;
-  template <typename U>
-  __host__ __device__ U* take(long k) {
-    U* r = reinterpret_cast<U*>(p);
-    p += gt_r16((long)sizeof(U) * k);
-    return r;
-  }
-};
-
 template <int MC>
 struct GtDims {
   static constexpr int NI = (MC + 3) * (MC + 2) / 2;  // flat Pab index
@@ -130,32 +123,9 @@ struct GtDims {
   static constexpr int M = C1 * (C1 + 1) / 2;         // {W,y} products
 };
 
-// A block's working set S in shared memory: a static __shared__ object
-// where it fits the 48 KB that static shared memory may take, else the
-// dynamic shared memory that gt_smem_bytes sizes at the launch (the
-// float64 working sets of the GT_WIDE_CVT instantiations).
+// Static shared memory's most bytes (above it, dynamic shared memory after
+// cudaFuncSetAttribute).
 #define GT_STATIC_SMEM 49152
-
-template <typename S>
-__device__ __forceinline__ S& gt_smem() {
-  if constexpr (sizeof(S) <= GT_STATIC_SMEM) {
-    __shared__ S s;
-    return s;
-  } else {
-    extern __shared__ __align__(16) unsigned char gt_dyn_smem[];
-    return *reinterpret_cast<S*>(gt_dyn_smem);
-  }
-}
-
-// The dynamic shared memory a launch of `kernel` needs for S (0 where S
-// is static); raises the kernel's limit to it first.
-template <typename S, typename K>
-inline int gt_smem_bytes(K kernel) {
-  if (sizeof(S) <= GT_STATIC_SMEM) return 0;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)sizeof(S));
-  return (int)sizeof(S);
-}
 
 struct PabTables {
   const int* aw;
@@ -291,102 +261,4 @@ __device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
                     (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
     nppab[k] = nz ? v : ps2_ab;
   }
-}
-
-// Shared memory of one SNP's test rows (K4, K5), for at most MC
-// covariates: the base row's sums in float64 whatever T, its rows in T.
-template <typename T, int MC>
-struct TestSmem {
-  double red[GT_WARPS * 8];
-  double q[GtDims<MC>::M + GtDims<MC>::C1 + 1];
-  T rows[2][GtDims<MC>::NI];
-};
-
-// The GT_DYN form: the same arrays in the lane's slice of global scratch
-// (red stays in shared memory).
-template <typename T>
-struct TestSmem<T, GT_DYN> {
-  double* red;
-  double* q;
-  T* rows[2];
-};
-
-__host__ __device__ inline long gt_test_lane_bytes(int n_cvt, int tsize) {
-  const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
-  return gt_r16((M + C1 + 1) * 8) +
-         2 * gt_r16(gt_n_index(n_cvt) * (long)tsize);
-}
-
-template <typename T>
-__device__ inline TestSmem<T, GT_DYN> gt_test_view(unsigned char* lane,
-                                                   int n_cvt) {
-  __shared__ double red[GT_WARPS * 8];
-  const long C1 = n_cvt + 1, M = C1 * (C1 + 1) / 2;
-  GtCarve cv{lane};
-  TestSmem<T, GT_DYN> v;
-  v.red = red;
-  v.q = cv.take<double>(M + C1 + 1);
-  v.rows[0] = cv.take<T>(gt_n_index(n_cvt));
-  v.rows[1] = cv.take<T>(gt_n_index(n_cvt));
-  return v;
-}
-
-// The entries of the CalcPab rows that the Wald and score tests read:
-// p_yy, p_xx, p_xy after the covariates are eliminated, px_yy after x.
-template <typename T>
-struct TestRows {
-  T p_yy, p_xx, p_xy, px_yy;
-};
-
-// One SNP's test rows at weight λ = l: the base row by block reduction
-// over n (hi = 1/(l·eval + 1)), then the CalcPab recurrence in shared
-// memory, threads parallel over the flat index.  Every thread of the
-// block calls it and gets the same values.  The terms are T's (hi and
-// hi·x rounded to T), their products and sums float64, each sum rounded
-// once to T: so the float32 base row is the correctly rounded one that
-// the plain version (likelihood._base_row) also forms, and the two
-// differ by the recurrence's rounding alone, not by two float32
-// summation orders.
-template <typename T, int MC>
-__device__ inline TestRows<T> gt_test_rows(T l, const T* eval, const T* UtWy,
-                                           const T* wy, const T* x,
-                                           const int* tab, int n_cvt, int n,
-                                           int M, int xx_pos, int xy_pos,
-                                           TestSmem<T, MC>& sm) {
-  const int C1 = n_cvt + 1;
-  auto f = [&](int qi, int i) -> double {
-    const T hi = T(1) / (l * eval[i] + T(1));
-    if (qi < M) return (double)hi * (double)wy[(long)i * M + qi];
-    qi -= M;
-    const T wx = hi * x[i];
-    if (qi < C1) return (double)wx * (double)UtWy[(long)i * C1 + qi];
-    return (double)wx * (double)x[i];
-  };
-  gt_block_sums(f, M + C1 + 1, n, sm.q, sm.red);
-  const PabTables t = gt_tables(tab, n_cvt);
-  const int ni = gt_n_index(n_cvt);
-  for (int k = threadIdx.x; k < ni; k += GT_THREADS) {
-    const int kind = t.kind[k], col = t.col[k];
-    sm.rows[0][k] = (T)(kind == 0   ? sm.q[col]
-                        : kind == 1 ? sm.q[M + C1]
-                                    : sm.q[M + col]);
-  }
-  __syncthreads();
-  TestRows<T> r;
-  r.p_yy = r.p_xx = r.p_xy = T(0);
-  int cur = 0;
-  for (int p = 1; p <= n_cvt + 1; ++p) {
-    if (p == n_cvt + 1) {
-      r.p_yy = sm.rows[cur][ni - 1];
-      r.p_xx = sm.rows[cur][xx_pos];
-      r.p_xy = sm.rows[cur][xy_pos];
-    }
-    gt_pab_step<T>(t, ni, p, 1, sm.rows[cur], nullptr, nullptr,
-                   sm.rows[1 - cur], nullptr, nullptr, threadIdx.x,
-                   GT_THREADS);
-    __syncthreads();
-    cur = 1 - cur;
-  }
-  r.px_yy = sm.rows[cur][ni - 1];  // yy is the last flat position
-  return r;
 }

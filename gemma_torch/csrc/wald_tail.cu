@@ -6,8 +6,9 @@
 //   gemma_tpu/ops/stats.py:21 f_sf
 // (CalcRLWald, lmm.cpp:1125-1161, with gsl_cdf_fdist_Q).
 //
-// One thread block per SNP at the lane's REML λ; the kernel and its
-// bound are in test_tail.cuh, which K5 shares.
+// At each lane's REML λ; the kernel, its design (the sums of
+// test_sums.cuh, the recurrence on a warp, the tails a thread a lane) and
+// its bound are in test_tail.cuh, which K5 shares.
 #include "test_tail.cuh"
 
 GT_TEST_TAIL_ENTRY(wald_tail, float, false)

@@ -93,6 +93,7 @@ class Kernel:
         self._fn = None
         self._err = None
         self._lib = None
+        self._sizes = {}   # query's answers
 
     @property
     def lib_stem(self) -> str:
@@ -154,13 +155,17 @@ class Kernel:
         self.launches += 1
 
     def query(self, what: str, *args: int) -> int:
-        """The kernel's C size function `<name>_<what>` at these sizes."""
-        if self._fn is None:
-            self._load()
-        fn = getattr(self._lib, f"{self.name}_{what}")
-        fn.argtypes = [_I] * len(args)
-        fn.restype = ctypes.c_long
-        return int(fn(*args))
+        """The kernel's C size function `<name>_<what>` at these sizes
+        (pure: each answer is kept)."""
+        key = (what,) + args
+        if key not in self._sizes:
+            if self._fn is None:
+                self._load()
+            fn = getattr(self._lib, f"{self.name}_{what}")
+            fn.argtypes = [_I] * len(args)
+            fn.restype = ctypes.c_long
+            self._sizes[key] = int(fn(*args))
+        return self._sizes[key]
 
     def lane_bytes(self, *args: int) -> int:
         """Bytes of scratch a lane of this kernel needs at these sizes

@@ -652,8 +652,9 @@ def check_lane_operands(data: LmmBatchData, n_cvt: int, dt,
 
 
 def _test_tail_cuda(k32, k64, lam, data: LmmBatchData, n_cvt: int):
-    """K4 or K5 on the card, float32 or float64: one block per lane; λ
-    is one per lane (S,) or one shared (1,)."""
+    """K4 or K5 on the card, float32 or float64 (csrc/test_tail.cuh: a
+    warp a lane, a tile of 8 lanes on DMMA or a block a lane, by c and
+    the lane strides); λ is one per lane (S,) or one shared (1,)."""
     kernels.check_n_cvt(n_cvt)
     idx = pab_indices(n_cvt)
     S, n = n_lanes(data), data.eval.shape[0]
@@ -752,6 +753,38 @@ def lrt_pvalues_plain(lam, logf_H1, data: LmmBatchData, n_cvt: int,
     return l1.to(dt), p.to(dt)
 
 
+def lrt_null_cuda(l_mle_null, data: LmmBatchData, n_cvt: int):
+    """K6's null launch on the card (speed mode): the float64 ML
+    log-likelihood of the covariate-only model at l_mle_null, one λ
+    shared by the lanes or one per lane (S,), in the logf_stable form
+    from the float32 operands."""
+    kernels.check_n_cvt(n_cvt)
+    S, n = n_lanes(data), data.eval.shape[0]
+    dev = data.eval.device
+    lam0 = l_mle_null.reshape(-1).contiguous()
+    kernels.check_operand(lam0, "l_mle_null", torch.float32)
+    _one_or_lanes(lam0, "l_mle_null", S)
+    check_lane_operands(data, n_cvt, torch.float32, wy=False)
+    ustride, _, xstride = lane_strides(data)
+    S0 = lam0.numel()
+    l0 = torch.empty(S0, dtype=torch.float64, device=dev)
+    kern = kernels.LRT_TAIL
+
+    def args(s0, k, w):
+        return (LRT_RECOMPUTE, lam0.data_ptr(), data.eval.data_ptr(),
+                data.UtWy.data_ptr(), data.Utx.data_ptr(), n_cvt, S0, n, 1,
+                ustride, xstride, logf_const(n, n_cvt, False, False), None,
+                None, 0, l0.data_ptr(), None, s0, k, w)
+    if S0 == 1:
+        # one lane: n split over blocks, partial sums in scratch
+        scratch = torch.empty(kern.query("null_bytes", n_cvt, n),
+                              dtype=torch.uint8, device=dev)
+        kern.launch(dev, *args(0, 1, scratch.data_ptr()))
+    else:
+        kern.launch_lanes(dev, S0, kern.lane_bytes(n_cvt), args)
+    return l0
+
+
 def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
                      l_mle_null, logl_H0):
     """K6 on the card: twice in speed mode (the null lane(s), then the
@@ -775,16 +808,7 @@ def lrt_pvalues_cuda(lam, logf_H1, data: LmmBatchData, n_cvt: int,
         if l_mle_null is None:
             l0 = logl_H0.to(f64).reshape(-1).contiguous()
         else:
-            lam0 = l_mle_null.reshape(-1).contiguous()
-            kernels.check_operand(lam0, "l_mle_null", dt)
-            _one_or_lanes(lam0, "l_mle_null", S)
-            l0 = torch.empty(lam0.numel(), dtype=f64, device=dev)
-            kern.launch_lanes(dev, lam0.numel(), lane_bytes,
-                              lambda s0, k, w: (
-                                  LRT_RECOMPUTE, lam0.data_ptr(), *ptrs,
-                                  n_cvt, lam0.numel(), n, 1, ustride,
-                                  xstride, c, None, None, 0, l0.data_ptr(),
-                                  None, s0, k, w))
+            l0 = lrt_null_cuda(l_mle_null, data, n_cvt)
         kernels.check_operand(l0, "logl_H0", f64)
         _one_or_lanes(l0, "logl_H0", S)
         kern.launch_lanes(dev, S, lane_bytes, lambda s0, k, w: (
