@@ -1100,7 +1100,9 @@ def _hold_mv_block(blk, record, check, amax):
     """K9, K10 and K11 against their plain versions on one block, as its
     path runs them: K9 with a fixed cap of 50 iterations and prec = 0
     (REML and ML), then converged in the path's REML form; K10 at the
-    converged (Vg, Ve); K11 from there (the -pnr refinement's form).
+    converged (Vg, Ve) and (but for the witness lanes) at the null's
+    shared (Vg, Ve), the score test's form; K11 from there (the -pnr
+    refinement's form).
     `blk`: the operands, the starts, the form's name, its launches, the
     kernel names' suffix, the converged fit's cap and staging, and `tight`
     for the float64 tolerances.  With `witness` (the ten-trait path's
@@ -1217,10 +1219,24 @@ def _hold_mv_block(blk, record, check, amax):
     else:
         ok = (err <= (1e-10 if tight else 1e-5)
               and beta_se <= (1e-8 if tight else 1e-3))
+        # the score test's form: the null's (Vg, Ve), shared by the lanes
+        s_a = (ev, X0, Y, R, V, E)
+        sk, sq = mvc.mph_calc_p_cuda(*s_a), mvc.mph_calc_p_plain(*s_a)
+        s_se = torch.sqrt(torch.diagonal(sq.Vbeta, dim1=-2, dim2=-1))
+        line["shared_max_abs_err"] = amax(sk.p, sq.p)
+        line["shared_beta_max_err_over_se"] = float(
+            ((sk.beta - sq.beta).abs() / s_se).max())
+        ok = (ok and line["shared_max_abs_err"]
+              <= (1e-10 if tight else 1e-5)
+              and line["shared_beta_max_err_over_se"]
+              <= (1e-8 if tight else 1e-3))
+    line["device_ms"], line["device_ms_from"] = _device_ms(
+        lambda: mvc.mph_calc_p_cuda(*a), ("void mph_calc_p",))
     chk("mph_calc_p", ok, {**line, "ms": ms, "plain_ms": pms})
     rec("mph_calc_p", err, ms, pms,
         in_bytes + 8 * S * (2 * d * d + 2 + d + d * d),
-        S * n * _mv_sums(d, c, "p")[1])
+        S * n * _mv_sums(d, c, "p")[1],
+        {k: line[k] for k in ("device_ms", "device_ms_from")})
     # K11 from the converged EM
     m = WIDE_NR_HOLD if wit else S
     a = (True, 10, 1e-3, ev, X0, Y, R[:m].contiguous(), kk.Vg[:m],
@@ -1602,14 +1618,17 @@ def _hold_mv_geometry(kernels, check):
     256), at most two teams a block, NB a multiple of 32 up to 32 W, the
     block's shared bytes within the card's 227 KB; the protocol block
     four warps a lane, two lanes a block, its operands in shared memory;
-    and a budget of three lanes' scratch splitting a block into launches
-    that take every lane once."""
+    K10's warp form (small d·c) a warp a lane, eight a block, no scratch,
+    its shared-(Vg, Ve) launch within 227 KB too, and the protocol block
+    in that form; and a budget of three lanes' scratch splitting a block
+    into launches that take every lane once."""
     from gemma_torch.kernels import lane_ranges
     bad = []
     for pair in ((kernels.MPH_EM, kernels.MPH_EM_F64),
                  (kernels.MPH_NR, kernels.MPH_NR_F64),
                  (kernels.MPH_CALC_P, kernels.MPH_CALC_P_F64)):
         for k in pair:
+            calc_p = k in (kernels.MPH_CALC_P, kernels.MPH_CALC_P_F64)
             for d in range(2, 11):
                 for c in range(2, 15):
                     lb = k.lane_bytes(d, c)
@@ -1626,22 +1645,215 @@ def _hold_mv_geometry(kernels, check):
                         W, L, NB, common, team, nbytes = (
                             k.query("geometry", count, MV_N, d, c - 1, 1, w)
                             for w in range(6))
-                        ok = (W in (4, 8, 16) and (W == 16) == (count <= 128)
-                              and (W == 4) == (count > 256)
-                              and 1 <= L and L * W <= max(W, 8)
-                              and NB % 32 == 0 and 32 <= NB <= 32 * W
-                              and common in (0, 1)
-                              and L * team * 8 <= nbytes <= 227 * 1024)
+                        if calc_p and k.query("geometry", count, MV_N, d,
+                                              c - 1, 1, 6):
+                            # K10's warp form: a warp a lane, eight a block
+                            sb = k.query("geometry", count, MV_N, d, c - 1,
+                                         1, 7)
+                            ok = ((W, L, NB) == (1, 8, 32) and lb == 0
+                                  and common in (0, 1)
+                                  and 8 * team * 8 <= min(nbytes, sb)
+                                  and max(nbytes, sb) <= 227 * 1024)
+                        else:
+                            ok = (W in (4, 8, 16)
+                                  and (W == 16) == (count <= 128)
+                                  and (W == 4) == (count > 256)
+                                  and 1 <= L and L * W <= max(W, 8)
+                                  and NB % 32 == 0 and 32 <= NB <= 32 * W
+                                  and common in (0, 1)
+                                  and L * team * 8 <= nbytes <= 227 * 1024)
                         if not ok:
                             bad.append((k.name, d, c, count,
                                         (W, L, NB, common, team, nbytes)))
             g = [k.query("geometry", 10759, MV_N, 2, 1, 1, w)
                  for w in range(4)]
-            if (g[0], g[1], g[3]) != (4, 2, 1):
+            if (g[0], g[1], g[3]) != ((1, 8, 1) if calc_p else (4, 2, 1)):
                 bad.append((k.name, "protocol", g))
     for name in ("mph_em", "mph_nr", "mph_calc_p"):
         check(name, not bad, {"geometry_invariants": not bad,
                               "violations": bad[:4]})
+
+
+# K10's forms on seeded lanes: (d, c) on both sides of each switch of
+# csrc/mph_calc_p.cu (k10w_inst: the warp form's instantiations up to
+# (2, 2), (2, 4), (4, 3) and (8, 2); the team form's fixed instantiation
+# up to (8, 10) and its run-time-sized form past it, with its state in
+# shared memory (k10_smem) and, at (4, 40), in the lanes' scratch)
+CALC_P_FORMS = ((2, 2), (2, 4), (2, 5), (3, 3), (3, 4), (4, 3), (4, 4),
+                (5, 2), (8, 2), (8, 3), (9, 2), (3, 11), (4, 40))
+CALC_P_FORM_LANES, CALC_P_FORM_SEED = 67, 30
+
+
+def _hold_calc_p_forms(check):
+    """K10 on CALC_P_FORM_LANES seeded lanes (_mv_seeded at n = MV_N) at
+    each of CALC_P_FORMS, float32 and float64 operands, against its plain
+    version at K10's tolerances: at per-lane (Vg, Ve) (the seeded pair
+    scaled a lane) with the LRT tail, and at the shared pair (the score
+    test's form, vstride 0); the shared form equal bit for bit to the
+    per-lane form at that pair copied to every lane; and the per-lane
+    call split into launches of three lanes equal to the unsplit one."""
+    import torch
+    from gemma_torch import kernels
+    from gemma_torch.models import mvlmm_core as mvc
+    f64 = torch.float64
+    dev = torch.device("cuda")
+    for dt in (torch.float32, f64):
+        kern = kernels.variant(kernels.MPH_CALC_P, kernels.MPH_CALC_P_F64,
+                               dt)
+        tol_p, tol_b = (1e-10, 1e-8) if dt == f64 else (1e-5, 1e-3)
+        for d, c in CALC_P_FORMS:
+            rng = np.random.default_rng(CALC_P_FORM_SEED + 100 * d + c)
+            o = _mv_seeded(d, c, MV_N, CALC_P_FORM_LANES, dt, dev,
+                           seed=CALC_P_FORM_SEED + d + c)
+            ev, X0, Y, R = o["ev"], o["X0"], o["Y"], o["R1"]
+            S = R.shape[0]
+            V0, E0 = o["null"].Vg_start, o["null"].Ve_start
+
+            def f(a):
+                return torch.as_tensor(a, dtype=f64, device=dev)
+            sc = f(rng.uniform(0.5, 2.0, size=(S, 1, 1)))
+            V = (V0[None] * sc).contiguous()
+            E = (E0[None] * sc.flip(0)).contiguous()
+            l1 = f(rng.normal(size=S) - 1000.0)
+            l0 = l1 - f(rng.exponential(2.0, size=S))
+            line = {"block": f"forms_d{d}_c{c}", "S": S, "n": MV_N, "d": d,
+                    "c": c, "form": "warp" if kern.query(
+                        "geometry", S, MV_N, d, c - 1, 1, 6) else "team"}
+            ok = True
+            for tag, a in (("", (ev, X0, Y, R, V, E, l1, l0)),
+                           ("shared_", (ev, X0, Y, R, V0[None], E0[None]))):
+                got = mvc.mph_calc_p_cuda(*a)
+                want = mvc.mph_calc_p_plain(*a)
+                se = torch.sqrt(torch.diagonal(want.Vbeta, dim1=-2,
+                                               dim2=-1))
+                fin = torch.isfinite(want.p) & torch.isfinite(got.p)
+                err = float((got.p - want.p)[fin].abs().max())
+                if want.p_lrt is not None:
+                    err = max(err, float((got.p_lrt - want.p_lrt).abs()
+                                         .max()))
+                bse = float(((got.beta - want.beta).abs() / se).max())
+                line[tag + "max_abs_err"] = err
+                line[tag + "beta_max_err_over_se"] = bse
+                ok = ok and err <= tol_p and bse <= tol_b \
+                    and bool(fin.all())
+            a = (ev, X0, Y, R, V0.expand(S, d, d).contiguous(),
+                 E0.expand(S, d, d).contiguous())
+            shared, each = (mvc.mph_calc_p_cuda(ev, X0, Y, R, V0[None],
+                                                E0[None]),
+                            mvc.mph_calc_p_cuda(*a))
+            line["shared_equal"] = all(
+                torch.equal(x, y) for x, y in zip(shared[:4], each[:4]))
+            a = (ev, X0, Y, R, V, E, l1, l0)
+            line["split_launches_added"], line["split_equal"] = \
+                _split_equal(kernels, kern, mvc.mph_calc_p_cuda, a,
+                             mvc.mph_calc_p_cuda(*a))
+            check(kern.name, ok and line["shared_equal"]
+                  and line["split_equal"]
+                  and line["split_launches_added"] > 0, line)
+
+
+# K8's forms on seeded rows: covariates on both sides of the switch
+# between the warp form and the tile form (csrc/lm_tail.cu LM_NARROW),
+# the tile form's one, two, four and eight column tiles a pass and its
+# passes over n (past 63); rows of n = 1,940 (16-byte aligned) and 1,939
+# (not)
+LM_FORM_COVS = (1, 2, 3, 4, 8, 16, 24, 40, 300)
+LM_FORM_ROWS, LM_FORM_SEED, LM_FORM_SHIFT = 77, 31, 5
+
+
+def _hold_lm_forms(check):
+    """K8 on LM_FORM_ROWS seeded rows at each of LM_FORM_COVS
+    covariates (an intercept and normal columns), rows of n = 1,940 and
+    1,939 individuals, float32 and float64, SNP rows and (at 1 and 4
+    covariates) gene rows, against its plain version at K8's tolerances;
+    and the rows from LM_FORM_SHIFT on, called alone (other tiles, other
+    warps, another alignment of the first row), equal bit for bit to the
+    same rows of the whole call."""
+    import torch
+    from gemma_torch import kernels
+    from gemma_torch.models import lm
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(LM_FORM_SEED)
+    for n in (1940, 1939):
+        X = rng.binomial(2, 0.3, size=(LM_FORM_ROWS, n)).astype(float)
+        y = rng.normal(size=n)
+        W = np.column_stack([np.ones(n), rng.normal(
+            size=(n, max(LM_FORM_COVS) - 1))])
+        for dt in (torch.float32, torch.float64):
+            kern = kernels.variant(kernels.LM_TAIL, kernels.LM_TAIL_F64, dt)
+            tol_p, tol_b = ((1e-12, 1e-10) if dt == torch.float64
+                            else (1e-6, 1e-5))
+
+            def t(a):
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                       device=dev)
+            xs, yd = t(X), t(y)
+            for c in LM_FORM_COVS:
+                Wd = t(W[:, :c])
+                for gene in ((False, True) if c in (1, 4) else (False,)):
+                    args = (xs, yd, Wd, lm.lm_consts(Wd, yd), gene, False)
+                    got = lm.lm_tail_cuda(*args)
+                    want = lm.lm_tail_plain(*args)
+                    err = max(float((getattr(got, f) - getattr(want, f))
+                                    .abs().nan_to_num(0.0).max())
+                              for f in ("p_wald", "p_lrt", "p_score"))
+                    bse = float(((got.beta - want.beta).abs()
+                                 / want.se).nan_to_num(0.0).max())
+                    part = lm.lm_tail_cuda(xs[LM_FORM_SHIFT:], *args[1:])
+                    same = all(torch.equal(a.nan_to_num(0.0),
+                                           b[LM_FORM_SHIFT:].nan_to_num(0.0))
+                               for a, b in zip(part, got))
+                    same_nan = bool((torch.isnan(got.p_wald)
+                                     == torch.isnan(want.p_wald)).all())
+                    check(kern.name, err <= tol_p and bse <= tol_b and same
+                          and same_nan, {
+                              "block": f"forms_c{c}", "rows": "genes" if gene
+                              else "snps", "S": LM_FORM_ROWS, "n": n,
+                              "c": c, "form": "tile" if
+                              kernels.LM_TAIL.query("geometry", c, 4, 0)
+                              else "warp",
+                              "max_abs_err": err,
+                              "beta_max_err_over_se": bse,
+                              "shifted_equal": same})
+
+
+def _device_ms(fn, prefixes):
+    """Device ms of one call of fn (after a warm-up) in the CUDA kernels
+    whose names start with one of `prefixes` (torch.profiler, as
+    _profile reads it); where the profiler saw none, the card's own ms
+    of the call by CUDA events, the median of five calls each enqueued
+    behind a sleep on the card longer than the host's enqueue (after the
+    L2 flush, as time_ms), and which of the two: (ms, "profiler" or
+    "events")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    t = sum(getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.key.startswith(prefixes))
+    if t > 0:
+        return t / 1e3, "profiler"
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    ts = []
+    for _ in range(5):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(8 * DEVICE_SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts)), "events"
 
 
 def _split_equal(kernels, kern, fn, args, whole):
@@ -3852,17 +4064,24 @@ def main():
                              == torch.isnan(p_out.p_wald)).all())
             ms = time_ms(lambda: lm.lm_tail_cuda(*args), 20)
             pms = time_ms(lambda: lm.lm_tail_plain(*args), 3)
+            dms, dfrom = _device_ms(lambda: lm.lm_tail_cuda(*args),
+                                    ("void lm_",))
             S_ = rows.shape[0]
             check(name, err <= tol_p and beta_se <= tol_b and same_nan,
                   {"max_abs_err": err, "beta_max_err_over_se": beta_se,
                    "rows": "genes" if gene else "snps", "c": Wd.shape[1],
-                   "S": S_, "ms": ms, "plain_ms": pms})
+                   "S": S_, "ms": ms, "plain_ms": pms, "device_ms": dms,
+                   "device_ms_from": dfrom})
             isz = torch.finfo(dt).bits // 8
             nc = Wd.shape[1]
+            # the tile form (past 3 covariates) takes its products on
+            # the FP64 tensor cores
             record(name, err, ms, pms,
                    isz * (S_ * n + (1 + nc) * n + 5 * S_)
                    + 8 * (nc * nc + nc + 1),
-                   2 * (2 + nc) * S_ * n, peak=PEAK_F64_PER_S,
+                   2 * (2 + nc) * S_ * n,
+                   peak=PEAK_F64_TC_PER_S if nc > 3 else PEAK_F64_PER_S,
+                   extra={"device_ms": dms, "device_ms_from": dfrom},
                    launches=counts_i["f32" if dt == f32 else "f64"] if c24
                    else counts_k["cvt40" if dt == f32 else "cvt40_f64"]
                    if c40 else counts_e["lm"],
@@ -3871,6 +4090,8 @@ def main():
     _hold_search_layout(kernels, check)
     _hold_tail_layout(kernels, check)
     _hold_mv_geometry(kernels, check)
+    _hold_calc_p_forms(check)
+    _hold_lm_forms(check)
     _hold_mixed(check, amax)
     _hold_mvlmm(mv_ops, counts_f, record, check, amax)
     _hold_crt(mv_ops, counts_f, record, check)

@@ -14,7 +14,7 @@ The library name carries a hash of the source, the shared headers
 starts one `nvcc` per library at once.  A source may hold a float64
 instantiation beside its float32 kernel: that is a `Kernel` of its own
 (name `<name>_f64`, entry point `<name>_f64_launch`) with its own count,
-built into the same library, or, for the mvLMM's K9 and K11, whose
+built into the same library, or, for the mvLMM's K9, K10 and K11, whose
 precisions each take most of their source's build, into one of its own
 (`only`: the source compiled with `-DGT_ONLY=32` or `64`).
 
@@ -290,9 +290,9 @@ _P_ARGS = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
            _P, _P, _P, _P, _P) + _LANES
 _P_REPLACES = ("gemma_tpu/models/mvlmm_core.py:712 mph_calc_p + "
                "gemma_tpu/ops/stats.py:46 chisq_sf")
-MPH_CALC_P = Kernel("mph_calc_p", _P_ARGS, _P_REPLACES)
+MPH_CALC_P = Kernel("mph_calc_p", _P_ARGS, _P_REPLACES, only=32)
 MPH_CALC_P_F64 = Kernel("mph_calc_p_f64", _P_ARGS, _P_REPLACES,
-                        source="mph_calc_p")
+                        source="mph_calc_p", only=64)
 _NR_ARGS = (_I, _I, _D, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
             _P, _P, _P, _P) + _LANES
 _NR_REPLACES = ("gemma_tpu/models/mvlmm_core.py:439 mph_nr (with "

@@ -106,7 +106,8 @@ def lm_tail_cuda(rows, v, W, consts: LmConsts, gene: bool,
     kernels.check_operand(consts.WtWi_Wtv, "WtWi_Wtv", f64, (c,))
     kernels.check_operand(consts.vPwv, "vPwv", f64, (1,))
     out = torch.empty((5, S), dtype=dt, device=rows.device)
-    # above 32 covariates each row keeps its r'W in a scratch (c doubles)
+    # each row's projections for the tests' launch, and past three
+    # covariates its r'[W, v] (lm_tail_lane_bytes)
     scratch = torch.empty(S * kernels.LM_TAIL.lane_bytes(c), dtype=torch.uint8,
                           device=rows.device)
     kern.launch(rows.device, rows.data_ptr(), v.data_ptr(), W.data_ptr(),

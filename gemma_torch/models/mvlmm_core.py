@@ -447,7 +447,9 @@ def _check_lanes(eval_, X0, Y, R, dt):
 
 def _lane_param(t: torch.Tensor, name: str, S: int, shape: tuple):
     """A float64 contiguous (1 or S, *shape) tensor and its lane stride."""
-    t = t.to(_F64).reshape((-1,) + shape).contiguous()
+    if not (t.dtype == _F64 and tuple(t.shape[1:]) == shape
+            and t.dim() == 1 + len(shape) and t.is_contiguous()):
+        t = t.to(_F64).reshape((-1,) + shape).contiguous()
     if t.shape[0] not in (1, S):
         raise ValueError(f"{name}: expected 1 or {S} lanes, got {t.shape[0]}")
     return t, (0 if t.shape[0] == 1 else int(np.prod(shape)))
@@ -550,27 +552,31 @@ def mph_calc_p_cuda(eval_, X0, Y, R, Vg, Ve, logl1=None,
     if vs != vs2:
         raise ValueError("Vg and Ve must both be shared or both per lane")
     dev = eval_.device
-    stat = torch.empty(S, dtype=_F64, device=dev)
-    p = torch.empty_like(stat)
-    beta = torch.empty((S, d), dtype=_F64, device=dev)
-    Vbeta = torch.empty((S, d, d), dtype=_F64, device=dev)
-    p_lrt, l1, l0, l0s = None, 0, 0, 0
+    # the outputs in one allocation: stat, p, p_lrt, beta, Vbeta
+    out = torch.empty(S * (3 + d + d * d), dtype=_F64, device=dev)
+    stat, p, p_lrt = out[:S], out[S:2 * S], out[2 * S:3 * S]
+    beta = out[3 * S:(3 + d) * S].view(S, d)
+    Vbeta = out[(3 + d) * S:].view(S, d, d)
+    l1, l0, l0s = 0, 0, 0
     if logl1 is not None:
         logl1 = logl1.to(_F64).contiguous()
         logl0, l0s = _lane_param(logl0, "logl0", S, ())
         kernels.check_operand(logl1, "logl1", _F64, (S,))
-        p_lrt = torch.empty_like(stat)
         l1, l0 = logl1.data_ptr(), logl0.data_ptr()
-    ctr = torch.zeros(max(S, 1), dtype=torch.int32, device=dev)
+    # the team form's teams take their lanes from a counter; the warp form
+    # (geometry field 6) needs none
+    ctr = None
+    if S and not kern.query("geometry", S, n, d, c0, r, 6):
+        ctr = torch.zeros(S, dtype=torch.int32, device=dev)
     if S:
         kern.launch_lanes(dev, S, kern.lane_bytes(d, c0 + r),
                           lambda s0, k, w: (
             S, n, d, c0, r, eval_.data_ptr(), X0.data_ptr(), Y.data_ptr(),
             R.data_ptr(), Vg.data_ptr(), Ve.data_ptr(), vs, l1, l0, l0s,
             stat.data_ptr(), p.data_ptr(), beta.data_ptr(), Vbeta.data_ptr(),
-            0 if p_lrt is None else p_lrt.data_ptr(),
-            ctr.data_ptr() + 4 * s0, s0, k, w))
-    return CalcP(stat, p, beta, Vbeta, p_lrt)
+            0 if logl1 is None else p_lrt.data_ptr(),
+            0 if ctr is None else ctr.data_ptr() + 4 * s0, s0, k, w))
+    return CalcP(stat, p, beta, Vbeta, None if logl1 is None else p_lrt)
 
 
 def mph_calc_p(eval_, X0, Y, R, Vg, Ve, logl1=None, logl0=None) -> CalcP:
