@@ -117,7 +117,13 @@
    (i)'s.
 4. Holds each kernel against its plain PyTorch version on the card, on
    the same inputs, at the main path's shapes (n = 1940, S = the run's
-   block, c = 1, and c = 3 for K2-K7; the per-lane forms of K2-K7 at the
+   block, c = 1, and c = 3 for K2-K7; K1 on every wire, mode and
+   precision at n = 1-3, 1,937-1,940 and the n where a block's shared
+   memory passes 48 KB, with all-missing, 0x55-pad and monomorphic rows,
+   its hard-call IMPUTE bit for bit, and on a 2,048 x 100,000 block, its
+   geometry against k1_geometry; K2 at c = 2-16 in the form each count
+   takes, its null fit's one lane and the -gxe per-lane null; the
+   per-lane forms of K2-K7 at the
    GxE shapes, c = 1 plus env and x, and at the gene shapes, 2,048
    genes; K8 on SNP rows and gene rows; K9-K11 on the whole mvLMM
    protocol block, its GxE form and the five-trait block, the last at
@@ -306,6 +312,23 @@ VC_H2, VC_SEED, PC_N, PC_M = 0.5, 6, 8192, 3
 # run checked on its first CVT_GXE_CHECK SNPs (the CPU's per-lane search
 # at c = 24 takes about a second a SNP at n = 1940)
 CVT_N, CVT_SEED, CVT_LANES = 24, 24, 2048
+# K1 past the main path's block (_hold_prologue_forms): K1_ROWS seeded
+# rows at each n of K1_NS (n = 1..3, each residue mod 4 at the mouse
+# width, and the n at which a block's staged bytes and its static ones
+# pass the default 48 KB of shared memory: the warp form's two float64
+# rows or two float32 or eight int8 rows at 3,071 and 6,141, the block
+# form's float32 row at 12,250, int8 at 49,000 and packed at 196,000), a
+# biobank block of K1_BIG_S SNPs x K1_BIG_N individuals
+K1_NS = (1, 2, 3, 1937, 1938, 1939, 1940, 3071, 6141, 12_250, 49_000,
+         196_000)
+K1_ROWS, K1_SEED = 300, 15
+K1_BIG_S, K1_BIG_N = 2048, 100_000
+K1_PREFIX = ("void geno_prologue",)
+# K2 at each covariate count of GRID_CVT on the main path's block (its
+# first CVT_LANES lanes above GRID_ALL_LANES covariates), every form that
+# takes it (_hold_grid_forms)
+GRID_CVT, GRID_SEED, GRID_ALL_LANES = (2, 3, 4, 8, 12, 13, 16), 16, 4
+GRID_PREFIX = ("void lambda_grid", "lambda_grid")
 CVT_GXE_LANES, CVT_GXE_CHECK = 1024, 32
 # phase (j): MQS on phase (h)'s genotypes and phenotype, MQS_CATS -cat
 # categories (the quarters of the SNPs)
@@ -1459,6 +1482,37 @@ def _r8(v):
     return (v + 7) // 8 * 8
 
 
+# K1's geometry (csrc/geno_prologue.cu K1_*): a warp a row up to
+# K1_WARP_N individuals, at most K1_WARPS rows and K1_ROWS_SMEM staged
+# bytes a block; above, a block a row, staged up to K1_SMEM_MAX bytes
+K1 = dict(warps=8, warp_n=8192, rows_smem=64 * 1024, smem_max=200 * 1024)
+K1_WIRE_BYTES = {0: 1, 1: 1, 2: 4, 3: 8}
+
+
+def k1_geometry(wire, n, nb):
+    """k1_geom: (form, rows a block, dynamic shared memory bytes) for a
+    row of nb wire elements: form 0 a warp a row, 1 a block a row staged
+    in shared memory, 2 a block a row read from device memory."""
+    rowbytes = nb * K1_WIRE_BYTES[wire]
+    if n <= K1["warp_n"]:
+        form, rows = 0, max(1, min(K1["warps"], K1["rows_smem"] // rowbytes))
+    else:
+        form, rows = (1 if rowbytes <= K1["smem_max"] else 2), 1
+    return form, rows, 0 if form == 2 else _r16(rows * rowbytes + 15)
+
+
+def k1_stage_pieces(addr, nbytes):
+    """k1_stage's copies of the bytes [addr, addr + nbytes): (head, chunks,
+    tail), head and tail (start, end) ranges loaded plainly, chunks the
+    16-byte aligned starts copied by cp.async; the shared-memory offset
+    of address a is a - (addr & ~15)."""
+    end = addr + nbytes
+    lo, hi = _r16(addr), end // 16 * 16
+    if lo >= hi:
+        lo = hi = end
+    return (addr, lo), list(range(lo, hi, 16)), (hi, end)
+
+
 def tail_form(n_cvt, shared_ops):
     """The launch form of K4-K6 at n_cvt covariates (ts_form)."""
     C1 = n_cvt + 1
@@ -1919,6 +1973,210 @@ def _hold_grid_wide(fac, x, fine_np, check):
                    "G": len(grid), "lane_bytes": lane_bytes, "ms": ms,
                    "plain_ms": pms})
         del data, gp
+
+
+def k1_genotypes(S, n, seed, missing=0.02):
+    """(S, n) int8 hard calls, -1 missing, from `seed`: a MAF a row drawn
+    from [0.05, 0.5), `missing` of the calls missing; where S > 3 row 0
+    all missing, row 1 monomorphic (each observed call 2) and row 2 all
+    0.  K1's holds, tests/test_torch_prologue_grid.py and
+    scripts/k1_k2_phase_profile.py draw their genotypes here."""
+    rng = np.random.default_rng(seed)
+    maf = rng.uniform(0.05, 0.5, (S, 1)).astype(np.float32)
+    X = (rng.random((S, n), dtype=np.float32) < maf).astype(np.int8)
+    X += rng.random((S, n), dtype=np.float32) < maf
+    X[rng.random((S, n), dtype=np.float32) < missing] = -1
+    if S > 3:
+        X[0] = -1
+        X[1] = np.where(X[1] < 0, -1, 2)
+        X[2] = 0
+    return X
+
+
+def _hold_prologue_forms(dev, check, record):
+    """K1 past the main path's block, against prologue_plain on the card:
+    the kernel's geometry equal to k1_geometry's; at each n of K1_NS
+    (with an all-missing, a 0x55 pad and monomorphic rows, the rows
+    starting at the block's address and one row on) every wire, mode
+    (IMPUTE, CENTRE, CENTRE with scale over n and over n + 7) and
+    precision: hard-call IMPUTE bit for bit, the rest within 1e-5 /
+    1e-12; and the biobank block (K1_BIG_S x K1_BIG_N: the block form,
+    packed and int8 rows staged, float rows read twice) on each wire,
+    IMPUTE, timed (ms, device ms) as a form of the kernels line, its
+    launches null: no driven path runs it."""
+    import torch
+    from gemma_torch import kernels
+    from gemma_torch.ops import pack2
+    f32, f64 = torch.float32, torch.float64
+    geo = []
+    for wire in (0, 1, 2, 3):
+        for nn in sorted(set(K1_NS) | {8192, 8193, 50_000, 100_000,
+                                       200_000}):
+            nb = pack2.packed_width(nn) if wire == 0 else nn
+            got = tuple(kernels.GENO_PROLOGUE.query("geometry", wire, nn, nb,
+                                                    f) for f in range(3))
+            geo.append((wire, nn, got, k1_geometry(wire, nn, nb)))
+    bad = [g for g in geo if g[2] != g[3]]
+    check("geno_prologue", not bad, {"block": "geometry", "shapes": len(geo),
+                                     "differ": bad[:4]})
+    modes = ((pack2.IMPUTE, False, 0), (pack2.CENTRE, False, 0),
+             (pack2.CENTRE, True, 0), (pack2.CENTRE, True, 7))
+    for nn in K1_NS:
+        Xn = k1_genotypes(K1_ROWS, nn, K1_SEED + nn)
+        pad = np.full((1, pack2.packed_width(nn)), pack2.PAD_BYTE, np.uint8)
+        packed = torch.from_numpy(np.vstack([pack2.pack_bed_codes(Xn),
+                                             pad])).to(dev)
+        X = torch.from_numpy(Xn).to(dev)
+        for dt, name, tol in ((f32, "geno_prologue", 1e-5),
+                              (f64, "geno_prologue_f64", 1e-12)):
+            xf = torch.where(X < 0, torch.full((), float("nan"), dtype=dt,
+                                               device=dev), X.to(dt))
+            worst, unequal, cases = 0.0, [], 0
+            for wire, raw in (("packed", packed), ("int8", X),
+                              ("float", xf)):
+                for off in (0, 1):
+                    for mode, scale, extra in modes:
+                        a = (raw[off:], nn, mode, scale,
+                             nn + extra if extra else None, dt)
+                        k = pack2.prologue_cuda(*a)
+                        p = pack2.prologue_plain(*a)
+                        cases += 1
+                        worst = max(worst, float((k - p).abs().max()))
+                        if (wire != "float" and mode == pack2.IMPUTE
+                                and not torch.equal(k, p)):
+                            unequal.append((wire, off))
+                        if wire == "packed" and off == 0:
+                            assert bool((k[-1] == 0).all())
+            check(name, worst <= tol and not unequal,
+                  {"block": f"n{nn}", "S": K1_ROWS, "cases": cases,
+                   "max_abs_err": worst, "hard_impute_not_equal": unequal})
+    Xn = k1_genotypes(K1_BIG_S, K1_BIG_N, K1_SEED)
+    X, packed = (torch.from_numpy(a).to(dev)
+                 for a in (Xn, pack2.pack_bed_codes(Xn)))
+    del Xn
+    for dt, name, tol in ((f32, "geno_prologue", 1e-5),
+                          (f64, "geno_prologue_f64", 1e-12)):
+        isz = torch.finfo(dt).bits // 8
+        for wire in ("packed", "int8", "float"):
+            raw = (packed if wire == "packed" else X if wire == "int8"
+                   else torch.where(X < 0, torch.full((), float("nan"),
+                                                      dtype=dt, device=dev),
+                                    X.to(dt)))
+            a = (raw, K1_BIG_N, pack2.IMPUTE, False, None, dt)
+            k = pack2.prologue_cuda(*a)
+            p, pms = _timed(lambda: pack2.prologue_plain(*a))
+            err = float((k - p).abs().max())
+            equal = bool(torch.equal(k, p))
+            del k, p
+            ms = time_ms(lambda: pack2.prologue_cuda(*a), 5)
+            dms, dfrom = _device_ms(lambda: pack2.prologue_cuda(*a),
+                                    K1_PREFIX)
+            nbytes = raw.numel() * raw.element_size() + isz * raw.shape[0] \
+                * K1_BIG_N
+            check(name, err <= tol and (equal or wire == "float"),
+                  {"block": "n100k_" + wire, "S": K1_BIG_S, "n": K1_BIG_N,
+                   "max_abs_err": err, "bit_equal": equal, "ms": ms,
+                   "device_ms": dms, "device_ms_from": dfrom,
+                   "plain_ms": pms})
+            record(name, err, ms, pms, nbytes, 6 * K1_BIG_S * K1_BIG_N,
+                   peak=PEAK_F32_PER_S if dt == f32 else PEAK_F64_PER_S,
+                   launches={name: None}, form="n100k_" + wire,
+                   extra={"device_ms": dms, "device_ms_from": dfrom})
+            del raw
+    del X, packed
+    torch.cuda.empty_cache()
+
+
+def _grid_work(gp, nc, calc_null):
+    """K2's bytes (the products read once, d1f written once) and its
+    operations on gp: six a live recurrence entry, both rows (step p
+    updates only the pairs a, b > p, the ones a later step or dev1 reads
+    again)."""
+    G, S = gp.xx.shape[1], gp.xx.shape[2]
+    steps = nc if calc_null else nc + 1
+    live = sum((nc + 2 - p) * (nc + 3 - p) // 2 for p in range(1, steps + 1))
+    return (4 * (gp.xcross.numel() + gp.xx.numel() + gp.shared.numel()
+                 + 2 * G + G * S), G * S * 2 * live * 6)
+
+
+def _hold_grid_forms(fac, x, fine_np, env, launched, check, record):
+    """K2 at each covariate count of GRID_CVT (an intercept and seeded
+    normal columns; the main path's block, its first CVT_LANES lanes
+    above GRID_ALL_LANES covariates), REML and ML, the alternative and the
+    null fit (calc_null), in the form that takes it (a per-lane entry of
+    the kernels line, REML alternative); the null fit's one-lane launch at
+    c = 1; and the -gxe block's per-lane ML null fit (c = 3 a lane,
+    calc_null).  Each at K2's tolerance, with its ms and device ms.  An
+    entry's launches are those of the path in `launched` (label -> a
+    path's counts) that runs its form, null where no driven path does."""
+    import torch
+    from gemma_torch.models.lmm import likelihood as lk
+    from gemma_torch.models.lmm.engine import gxe_batch_data
+    f32 = torch.float32
+    ev, U, _, y = fac
+    n, dev = ev.shape[0], ev.device
+    lam_g = torch.as_tensor(fine_np, dtype=f32, device=dev)[:, None]
+    rng = np.random.default_rng(GRID_SEED)
+    W = torch.as_tensor(np.column_stack(
+        [np.ones(n), rng.normal(size=(n, max(GRID_CVT) - 1))]), dtype=f32,
+        device=dev)
+    Uty = U.T @ y
+
+    def hold(label, gp, nc, calc_null, reml, rec=False):
+        a = (gp, n, nc, calc_null, reml)
+        d_k = lk.grid_epilogue_cuda(*a)
+        ms = time_ms(lambda: lk.grid_epilogue_cuda(*a), 10)
+        dms, dfrom = _device_ms(lambda: lk.grid_epilogue_cuda(*a),
+                                GRID_PREFIX)
+        form = grid_form(nc)
+        d_p, pms = _timed(lambda: lk.grid_epilogue_plain(*a))
+        bound = 1e-5 * d_p.abs().max() + 8 * n * torch.finfo(f32).eps / lam_g
+        worst = float(((d_k - d_p).abs() / bound).max())
+        err = float((d_k - d_p).abs().max())
+        same_nan = bool(torch.equal(d_k.isnan(), d_p.isnan()))
+        line = {"block": label, "fit": "reml" if reml else "ml",
+                "calc_null": calc_null, "form": form,
+                "S": gp.xx.shape[2], "max_abs_err": err,
+                "max_err_over_bound": worst, "ms": ms, "device_ms": dms,
+                "device_ms_from": dfrom, "plain_ms": pms}
+        check("lambda_grid", worst <= 1.0 and same_nan, line)
+        if rec:
+            nbytes, nops = _grid_work(gp, nc, calc_null)
+            record("lambda_grid", err, ms, pms, nbytes, nops,
+                   launches=launched.get(label, {"lambda_grid": None}),
+                   form=label, extra={"device_ms": dms,
+                                      "device_ms_from": dfrom,
+                                      "run_form": form})
+
+    gp = lk.grid_products(fine_np, lk.null_batch_data(
+        ev, U.T @ W[:, :1], Uty, 1), 1)
+    for reml in (True, False):
+        hold("null_c1", gp, 1, True, reml, rec=reml)
+    xu = (x @ U).contiguous()
+    xl = xu[:CVT_LANES].contiguous()
+    for nc in GRID_CVT:
+        gp = lk.grid_products(fine_np, lk.build_batch_data(
+            ev, U.T @ W[:, :nc], Uty, xu if nc <= GRID_ALL_LANES else xl,
+            nc), nc)
+        for reml in (True, False):
+            for calc_null in (False, True):
+                hold(f"c{nc}", gp, nc, calc_null, reml,
+                     rec=reml and not calc_null)
+        del gp
+    xg = x[:CVT_LANES]
+    env_d = torch.as_tensor(env, dtype=f32, device=dev)
+    gp = lk.grid_products(fine_np, gxe_batch_data(
+        ev, U.T @ W[:, :1], U.T @ env_d, Uty, xg @ U, (xg * env_d) @ U, 1), 3)
+    hold("gxe_null", gp, 3, True, False, rec=True)
+    del gp, xl, xu
+
+
+def grid_form(n_cvt):
+    """K2's form at n_cvt covariates: "warp" where the launch reads the
+    Pab index tables (lambda_grid_tables), else "register"."""
+    from gemma_torch import kernels
+    return ("warp" if kernels.LAMBDA_GRID.query("tables", n_cvt)
+            else "register")
 
 
 def _hold_lrt_wide(label, data, nc, lam, l0, check):
@@ -2575,17 +2833,21 @@ def _hold_mqs(counts_j, record, check):
         x_p = pack2.prologue_plain(*args)
         err = float((x_k - x_p).abs().max())
         ms = time_ms(lambda: pack2.prologue_cuda(*args), 20)
+        dms, dfrom = _device_ms(lambda: pack2.prologue_cuda(*args),
+                                K1_PREFIX)
         pms = time_ms(lambda: pack2.prologue_plain(*args), 5)
         S = raw.shape[0]
         check(name, err <= tol, {"block": "ci_standardised",
                                  "max_abs_err": err, "S": S, "n": n,
                                  "wire": str(raw.dtype), "ms": ms,
+                                 "device_ms": dms, "device_ms_from": dfrom,
                                  "plain_ms": pms})
         isz = torch.finfo(dt).bits // 8
         record(name, err, ms, pms, raw.numel() * raw.element_size()
                + isz * S * n, 6 * S * n,
                peak=PEAK_F32_PER_S if dt == torch.float32
-               else PEAK_F64_PER_S, launches=cnt, form="ci_standardised")
+               else PEAK_F64_PER_S, launches=cnt, form="ci_standardised",
+               extra={"device_ms": dms, "device_ms_from": dfrom})
 
 
 def _keep_pair_colsum(store):
@@ -3632,28 +3894,37 @@ def main():
                                              data.wy_prod, data.Utx))
 
     # K1: the association operand (impute) on the main path's block, and
-    # the kinship operand (centre + standardise), float32 and float64
+    # the kinship operand (centre + standardise), float32 and float64; the
+    # block is hard calls, so IMPUTE must equal the plain version bit for
+    # bit
     xs = {}
     for dt, name, tol in ((f32, "geno_prologue", 1e-5),
                           (f64, "geno_prologue_f64", 1e-12)):
         x_k = pack2.prologue_cuda(raw_a, n, pack2.IMPUTE, False, None, dt)
         x_p = pack2.prologue_plain(raw_a, n, pack2.IMPUTE, False, None, dt)
         err = float((x_k - x_p).abs().max())
+        equal = bool(torch.equal(x_k, x_p))
         ms = time_ms(lambda: pack2.prologue_cuda(raw_a, n, pack2.IMPUTE,
                                                  False, None, dt), 20)
+        dms, dfrom = _device_ms(lambda: pack2.prologue_cuda(
+            raw_a, n, pack2.IMPUTE, False, None, dt), K1_PREFIX)
         pms = time_ms(lambda: pack2.prologue_plain(
             raw_a, n, pack2.IMPUTE, False, None, dt), 5)
         c_k = pack2.prologue_cuda(raw_a, n, pack2.CENTRE, True, None, dt)
         c_p = pack2.prologue_plain(raw_a, n, pack2.CENTRE, True, None, dt)
         err = max(err, float((c_k - c_p).abs().max()))
-        check(name, err <= tol and x_k.dtype == dt,
-              {"max_abs_err": err, "S": S, "n": n, "ms": ms,
-               "plain_ms": pms})
+        check(name, err <= tol and x_k.dtype == dt and equal,
+              {"max_abs_err": err, "impute_bit_equal": equal, "S": S,
+               "n": n, "wire": str(raw_a.dtype), "ms": ms,
+               "device_ms": dms, "device_ms_from": dfrom, "plain_ms": pms})
         isz = torch.finfo(dt).bits // 8
         record(name, err, ms, pms, raw_a.numel() + isz * S * n, 6 * S * n,
                peak=PEAK_F32_PER_S if dt == f32 else PEAK_F64_PER_S,
-               launches=main_counts if dt == f32 else counts_b)
+               launches=main_counts if dt == f32 else counts_b,
+               extra={"device_ms": dms, "device_ms_from": dfrom})
         xs[dt] = x_k
+    del c_k, c_p, x_p
+    _hold_prologue_forms(dev, check, record)
 
     fine_np = opt.fine_grid(1e-5, 1e5, 10, opt._F32_GRID_REFINE)
     G = len(fine_np)
@@ -3665,9 +3936,6 @@ def main():
         shared by the lanes (0-d) or one per lane."""
         S_ = lk.n_lanes(data)
         C1, M = nc + 1, data.wy_prod.shape[-1]
-        # K2's recurrence entries: step p updates only the pairs a, b > p,
-        # the ones a later step or dev1 reads again
-        live = sum((nc + 2 - p) * (nc + 3 - p) // 2 for p in range(1, C1 + 1))
         opb = operand_bytes(data, 4)
         # the shared forms' K2-K4 launch on the main path (-gk + -lmm 1)
         main_path = {k: main_counts if form is None else counts
@@ -3689,9 +3957,13 @@ def main():
                                                        reml), 20)
             pms = time_ms(lambda: lk.grid_epilogue_plain(gp, n, nc, False,
                                                          reml), 3)
+            dms, dfrom = _device_ms(lambda: lk.grid_epilogue_cuda(
+                gp, n, nc, False, reml), GRID_PREFIX)
             check("lambda_grid", worst <= 1.0,
                   {"max_abs_err": err, "max_err_over_bound": worst,
                    "block": label, "fit": tag, "S": S_, "G": G, "ms": ms,
+                   "device_ms": dms, "device_ms_from": dfrom,
+                   "form": grid_form(nc),
                    "plain_ms": pms})
             if form == "c40" and reml:
                 # the warp form split into launches of three lanes
@@ -3703,10 +3975,9 @@ def main():
                        "split_launches_added": added, "split_equal": same})
             if rec and reml:
                 record("lambda_grid", err, ms, pms,
-                       4 * (gp.xcross.numel() + gp.xx.numel()
-                            + gp.shared.numel() + 2 * G + G * S_),
-                       G * S_ * 2 * live * 6,
-                       launches=main_path["lambda_grid"], form=form)
+                       *_grid_work(gp, nc, False),
+                       launches=main_path["lambda_grid"], form=form,
+                       extra={"device_ms": dms, "device_ms_from": dfrom})
 
             # K3, from the kernel's d1f
             args = (d_k, fine_np, data, nc, False, reml, 1e-5, 1e5, 10,
@@ -3948,6 +4219,12 @@ def main():
             nf = fit_null(ev, UtW, Uty, tr, nc)
             hold(c_label, data, nc, nf.l_mle, nf.l_mle, nf.logl_mle,
                  counts_a if dt == f32 else counts_b, rec=main)
+
+    # the null fit's one lane runs on the main path (-lmm 1), the -gxe
+    # block's per-lane null on -lmm 4 -gxe
+    _hold_grid_forms(fac[f32], xs[f32], fine_np, env_np[ds.indicator_idv],
+                     {"null_c1": main_counts, "gxe_null": counts_e["gxe"]},
+                     check, record)
 
     # the c = 24 forms: phase (i)'s covariates on the first CVT_LANES lanes
     # of the main path's block

@@ -19,7 +19,7 @@
 #include <stdint.h>
 
 // The covariate kernels K3-K8 are instantiated three times (K2 runs a
-// per-thread form up to GT_MAX_CVT and a warp form above, lambda_grid.cu):
+// register form at each c up to 12 and a warp form above, lambda_grid.cu):
 // for at most GT_MAX_CVT covariates, the code they always ran; for at most
 // GT_WIDE_CVT, which a launch takes only above GT_MAX_CVT; and, above
 // that, the form sized at run time (MC = GT_DYN), whose per-lane working
@@ -235,30 +235,5 @@ __device__ inline void gt_pab_step(const PabTables& t, int ni, int p,
         npppab[k] = nz ? v3 : ps3_ab;
       }
     }
-  }
-}
-
-// The same steps for one thread holding its rows in local arrays (K2's
-// per-thread form).
-__device__ inline void gt_pab_step_local(const PabTables& t, int ni, int p,
-                                         float* pab, float* ppab,
-                                         float* npab, float* nppab) {
-  const int* aw = t.aw + (p - 1) * ni;
-  const int* bw = t.bw + (p - 1) * ni;
-  const int w = t.ww[p - 1];
-  const float ps_ww = pab[w];
-  const float ps2_ww = ppab[w];
-  const bool nz = ps_ww != 0.f;
-  const float safe = nz ? ps_ww : 1.f;
-  for (int k = 0; k < ni; ++k) {
-    const float ps_aw = pab[aw[k]];
-    const float ps_bw = pab[bw[k]];
-    npab[k] = nz ? pab[k] - ps_aw * ps_bw / safe : pab[k];
-    const float ps2_ab = ppab[k];
-    const float ps2_aw = ppab[aw[k]];
-    const float ps2_bw = ppab[bw[k]];
-    const float v = ps2_ab + ps_aw * ps_bw * ps2_ww / (safe * safe) -
-                    (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
-    nppab[k] = nz ? v : ps2_ab;
   }
 }

@@ -12,40 +12,47 @@
 // x-free rows are per lane too, shared (2, G, m_wy, S), read coalesced
 // like xcross (wy_lane = 1).
 //
-// Bound: operations — the recurrence, O(c³) flops a (grid point, SNP);
-// the products are read once (S·2·G·(c+2)·4 bytes) and d1f written once.
-// Two forms:
-// * at most GT_MAX_CVT covariates (the main path): one thread per (grid
-//   point g, SNP s), s fastest: it assembles row 0 of both weight powers
-//   from the products, runs the two recurrences in local arrays (four rows
-//   of 171 floats, 2.7 KB a thread; at c = 1 only 6 of their entries are
-//   touched, so they stay in L1) and writes dev1.
-// * above it, a warp per (g, s), LG_WARPS warps a block on consecutive
-//   SNPs at one g (lambda_grid_warp).  The block assembles row 0 of its
-//   SNPs together, SNPs fastest, so that each product's consecutive values
-//   are read at once; then each warp's two rows live in shared memory,
-//   updated in place.  Step p eliminates label p (GEMMA's GetabIndex
-//   layout: row-major pairs a <= b of the labels 1..c+2), and only the
-//   pairs a, b > p are read again, by the later steps or dev1; they are
-//   the flat range [base(p+1), ni), which the warp's lanes stride.  Each
-//   reads the pivot row p (the pairs (p, a), (p, b), (p, p): row p's
-//   segment of the flat array, which no lane writes at step p) straight
-//   from shared memory, a broadcast where lanes share a label; the entry
-//   (a, b) itself is read and written by its own lane.  The two rows are
-//   interleaved, (pab, ppab) a float2 an entry, so that an entry and each
-//   pivot are one load.  So the dead
-//   entries are skipped, a __syncwarp() separates the steps, and each
-//   live entry's expression is gt_pab_step_local's (npab, nppab, the nz
-//   guard).  The block keeps each flat index's labels (a, b) in shared
-//   memory; above 338 covariates, where they pass the shared memory a
-//   block can take, the lanes read the pivots' flat indices from the
-//   tables' aw/bw instead.  Where even one warp's rows do not fit beside
-//   the labels (above 194 covariates) they live in global scratch, 2 ni
-//   floats a (g, s) (lambda_grid_lane_bytes a lane: G of them; the wrapper
-//   splits the lanes into launches under a byte budget).
+// Bound: bytes at small c (the products are read once, S·2·G·(c+2)·4
+// bytes, and d1f written once), operations above (the recurrence, O(c³)
+// flops a (grid point, SNP)).  Two forms:
+// * up to LG_REG_MAX covariates (the main path: c = 1): the register
+//   form, one thread a (grid point g, SNP s), s fastest, instantiated at
+//   each c (lambda_grid_reg<C>).  Every flat index, every row-0 source
+//   and every pivot is a compile-time constant (GEMMA's GetabIndex layout
+//   in closed form, lg_ab/lg_kind/lg_col), so the thread's two rows live
+//   in registers, the recurrence is unrolled, and the launch reads no
+//   index table.  Step p eliminates label p and updates only the pairs
+//   a, b > p, the ones a later step or dev1 reads again, in place: the
+//   pivots (p, a), (p, b), (p, p) are row p's, which step p does not
+//   write.  All row-0 loads are issued at once (coalesced over s).
+// * above LG_REG_MAX, a warp per (g, s) (lambda_grid_warp: at 13 and 16
+//   covariates faster than one thread a (g, s) with its rows in shared
+//   memory, which also lost to the register form at 8 and 12, PERF.md §6),
+//   LG_WARPS warps a block on consecutive SNPs at one g.  The block
+//   assembles row 0 of its SNPs together, SNPs fastest, so that each
+//   product's consecutive values are read at once; then each warp's two rows
+//   live in shared memory, updated in place.  Step p eliminates label p
+//   (GEMMA's GetabIndex layout: row-major pairs a <= b of the labels
+//   1..c+2), and only the pairs a, b > p are read again, by the later steps
+//   or dev1; they are the flat range [base(p+1), ni), which the warp's lanes
+//   stride.  Each reads the pivot row p (the pairs (p, a), (p, b), (p, p):
+//   row p's segment of the flat array, which no lane writes at step p)
+//   straight from shared memory, a broadcast where lanes share a label; the
+//   entry (a, b) itself is read and written by its own lane.  The two rows
+//   are interleaved, (pab, ppab) a float2 an entry, so that an entry and
+//   each pivot are one load.  So the dead entries are skipped and a
+//   __syncwarp() separates the steps.  The block keeps each flat index's
+//   labels (a, b) in shared memory; above 338 covariates, where they pass
+//   the shared memory a block can take, the lanes read the pivots' flat
+//   indices from the tables' aw/bw instead.  Where even one warp's rows do
+//   not fit beside the labels (above 194 covariates) they live in global
+//   scratch, 2 ni floats a (g, s) (lambda_grid_lane_bytes a lane: G of them;
+//   the wrapper splits the lanes into launches under a byte budget).
+// Each live entry's expression is lg_entry's in both forms: the plain
+// recurrence's (_pab_rows, _ppab_rows: npab, nppab, the nz guard).
 #include "common.cuh"
 
-// phase marks (scripts/k2_k14_phase_profile.py, -DGT_PROFILE): thread 0
+// phase marks (scripts/k1_k2_phase_profile.py, k2_k14, -DGT_PROFILE): thread 0
 // of a block
 #define LG_PH_ROWS 0    // assembling row 0 of both weight powers
 #define LG_PH_STEPS 1   // the recurrence steps
@@ -53,7 +60,10 @@
 
 #define LG_WARPS 8                  // warps of a block of the warp form
 #define LG_SMEM_MAX (227 * 1024)
-#define LG_STATIC_SMEM (48 * 1024)
+// a block may take this much shared memory without opting in to more;
+// the launch opts in LG_PROF_SMEM below it (GT_PROFILE's static mark)
+#define LG_DEFAULT_SMEM (48 * 1024)
+#define LG_PROF_SMEM 64
 
 // the warp form's geometry for ni flat entries: bytes of the labels
 // table in shared memory (0 where it does not fit), and the warps of a
@@ -68,97 +78,128 @@ __host__ __device__ inline int lg_smem_warps(int ni) {
   return w;
 }
 
-// One thread's dev1 with its four rows in the local arrays a0, a1, b0, b1.
-__device__ __forceinline__ void lambda_grid_thread(
-    float* a0, float* a1, float* b0, float* b1,
-    const float* __restrict__ xcross,
-    const float* __restrict__ xx, const float* __restrict__ shared,
-    const float* __restrict__ trace_hi, const float* __restrict__ lam,
-    const int* __restrict__ tab, int n_cvt, int S, int G, int M, int n,
-    int calc_null, int reml, int wy_lane, float* d1f, int s, int g) {
-  const PabTables t = gt_tables(tab, n_cvt);
-  const int ni = gt_n_index(n_cvt);
-  const int C1 = n_cvt + 1;
-  float* pab = a0;
-  float* ppab = a1;
-  float* npab = b0;
-  float* nppab = b1;
-  GT_PROF_START();
-  GT_PROF_COUNT(GT_PC_LANES, 1);
-  for (int k = 0; k < ni; ++k) {
-    const int kind = t.kind[k];
-    const int col = t.col[k];
-    float v0, v1;
-    if (kind == 0 && wy_lane) {
-      v0 = shared[(((long)0 * G + g) * M + col) * S + s];
-      v1 = shared[(((long)1 * G + g) * M + col) * S + s];
-    } else if (kind == 0) {
-      v0 = shared[((long)0 * G + g) * M + col];
-      v1 = shared[((long)1 * G + g) * M + col];
-    } else if (kind == 1) {
-      v0 = xx[((long)0 * G + g) * S + s];
-      v1 = xx[((long)1 * G + g) * S + s];
-    } else {
-      v0 = xcross[(((long)0 * G + g) * C1 + col) * S + s];
-      v1 = xcross[(((long)1 * G + g) * C1 + col) * S + s];
-    }
-    pab[k] = v0;
-    ppab[k] = v1;
-  }
-  GT_PROF(LG_PH_ROWS);
-  const int nc_total = calc_null ? n_cvt : n_cvt + 1;
-  float trace_p = trace_hi[g];
-  for (int p = 1; p <= nc_total; ++p) {
-    const int d = t.diag[p - 1];
-    trace_p = trace_p - ppab[d] / pab[d];
-    gt_pab_step_local(t, ni, p, pab, ppab, npab, nppab);
-    float* tmp = pab; pab = npab; npab = tmp;
-    tmp = ppab; ppab = nppab; nppab = tmp;
-  }
-  GT_PROF(LG_PH_STEPS);
-  // yy is the last flat position
-  const float p_yy = pab[ni - 1];
-  const float pp_yy = ppab[ni - 1];
-  const float l = lam[g];
+// the register form's instantiations c = 0..LG_REG_MAX: at c = 12 its
+// rows take 210 of 248 registers, at 13 they spill (PERF.md §6)
+#define LG_REG_MAX 12
+// threads of a block of the register form (256: faster than 128 at c = 2
+// and 4, no slower at 1 and 8; scripts/k1_k2_phase_profile.py times both)
+#define LG_REG_TPB 256
+
+// GEMMA's GetabIndex over cols = c + 2 labels (a <= b): the flat position
+// of the pair (a, b); labels 1..c are the covariates, c + 1 is x, c + 2 y
+__host__ __device__ constexpr int lg_ab(int a, int b, int cols) {
+  return (2 * cols - a + 2) * (a - 1) / 2 + (b - a);
+}
+// where row 0's entry (a, b) comes from: kind 0 the x-free {W,y} product
+// column lg_col (the pair's rank among the pairs without x, in flat
+// order), 1 the x'x term, 2 the x-partner column lg_col of [W | y]
+__host__ __device__ constexpr int lg_kind(int a, int b, int c) {
+  return (a == c + 1 && b == c + 1) ? 1 : (a == c + 1 || b == c + 1) ? 2 : 0;
+}
+__host__ __device__ constexpr int lg_col(int a, int b, int c) {
+  return (a == c + 1 && b == c + 1) ? 0
+         : b == c + 1               ? a - 1
+         : a == c + 1               ? c
+         : a == c + 2               ? (c + 1) * (c + 2) / 2 - 1
+                      : (a - 1) * (c + 2) - (a - 1) * a / 2 +
+                            (b <= c ? b - a : b - a - 1);
+}
+
+// row 0's entry (a, b) of both weight powers for (g, s)
+__device__ __forceinline__ float2 lg_row0(
+    int kind, int col, const float* __restrict__ xcross,
+    const float* __restrict__ xx, const float* __restrict__ shared, int C1,
+    int S, int G, int M, int wy_lane, int s, int g) {
+  if (kind == 0 && wy_lane)
+    return make_float2(shared[(((long)0 * G + g) * M + col) * S + s],
+                       shared[(((long)1 * G + g) * M + col) * S + s]);
+  if (kind == 0)
+    return make_float2(shared[((long)0 * G + g) * M + col],
+                       shared[((long)1 * G + g) * M + col]);
+  if (kind == 1)
+    return make_float2(xx[((long)0 * G + g) * S + s],
+                       xx[((long)1 * G + g) * S + s]);
+  return make_float2(xcross[(((long)0 * G + g) * C1 + col) * S + s],
+                     xcross[(((long)1 * G + g) * C1 + col) * S + s]);
+}
+
+// one live entry of step p: (pab, ppab) of the pair from its pivots
+// (p, a) and (p, b), as the plain _pab_rows/_ppab_rows
+__device__ __forceinline__ float2 lg_entry(float2 kk, float2 a2, float2 b2,
+                                           bool nz, float safe,
+                                           float ps2_ww) {
+  const float ps_aw = a2.x, ps_bw = b2.x, ps2_aw = a2.y, ps2_bw = b2.y;
+  const float ps2_ab = kk.y;
+  const float v = ps2_ab + ps_aw * ps_bw * ps2_ww / (safe * safe) -
+                  (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
+  return make_float2(nz ? kk.x - ps_aw * ps_bw / safe : kk.x,
+                     nz ? v : ps2_ab);
+}
+
+// dev1 from the last rows' yy entries and the trace
+__device__ __forceinline__ float lg_dev1(float p_yy, float pp_yy,
+                                         float trace_p, float th, float l,
+                                         int n, int n_cvt, int calc_null,
+                                         int reml) {
   const float ypkpy = (p_yy - pp_yy) / l;
-  float out;
   if (reml) {
     const float df = (float)(calc_null ? n - n_cvt : n - n_cvt - 1);
     const float trace_pk = (df - trace_p) / l;
-    out = -0.5f * trace_pk + 0.5f * df * ypkpy / p_yy;
-  } else {
-    const float trace_hik = ((float)n - trace_hi[g]) / l;
-    out = -0.5f * trace_hik + 0.5f * (float)n * ypkpy / p_yy;
+    return -0.5f * trace_pk + 0.5f * df * ypkpy / p_yy;
   }
-  d1f[(long)g * S + s] = out;
-  GT_PROF(LG_PH_DEV1);
+  const float trace_hik = ((float)n - th) / l;
+  return -0.5f * trace_hik + 0.5f * (float)n * ypkpy / p_yy;
 }
 
-// the per-thread form (at most GT_MAX_CVT covariates): lanes [s0, s0 +
-// count) of S, a thread a (g, s), its rows in local arrays
-__global__ void lambda_grid_kernel(const float* __restrict__ xcross,
-                                   const float* __restrict__ xx,
-                                   const float* __restrict__ shared,
-                                   const float* __restrict__ trace_hi,
-                                   const float* __restrict__ lam,
-                                   const int* __restrict__ tab, int n_cvt,
-                                   int S, int G, int M, int n,
-                                   int calc_null, int reml, int wy_lane,
-                                   float* d1f, int s0, int count) {
+// the register form at C covariates: lanes [s0, s0 + count) of S, a
+// thread a (g, s), its rows in registers
+template <int C>
+__global__ void __launch_bounds__(LG_REG_TPB)
+    lambda_grid_reg(const float* __restrict__ xcross,
+                    const float* __restrict__ xx,
+                    const float* __restrict__ shared,
+                    const float* __restrict__ trace_hi,
+                    const float* __restrict__ lam, int S, int G, int M,
+                    int n, int calc_null, int reml, int wy_lane,
+                    float* __restrict__ d1f, int s0, int count) {
+  constexpr int COLS = C + 2, NI = (C + 3) * (C + 2) / 2;
   const int sl = blockIdx.x * blockDim.x + threadIdx.x;
   const int g = blockIdx.y;
+  GT_PROF_START();
+  GT_PROF_COUNT(GT_PC_LANES, 1);
   if (sl >= count) return;
-  float a0[GtDims<GT_MAX_CVT>::NI], a1[GtDims<GT_MAX_CVT>::NI],
-      b0[GtDims<GT_MAX_CVT>::NI], b1[GtDims<GT_MAX_CVT>::NI];
-  lambda_grid_thread(a0, a1, b0, b1, xcross, xx, shared, trace_hi, lam, tab,
-                     n_cvt, S, G, M, n, calc_null, reml, wy_lane, d1f,
-                     s0 + sl, g);
-}
-
-// the flat position of the pair (p, p): row p of GetabIndex's layout over
-// cols = c + 2 labels
-__device__ __forceinline__ int lg_base(int p, int cols) {
-  return (2 * cols - p + 2) * (p - 1) / 2;
+  const int s = s0 + sl;
+  float2 r[NI];
+#pragma unroll
+  for (int a = 1; a <= COLS; ++a)
+#pragma unroll
+    for (int b = a; b <= COLS; ++b)
+      r[lg_ab(a, b, COLS)] =
+          lg_row0(lg_kind(a, b, C), lg_col(a, b, C), xcross, xx, shared,
+                  C + 1, S, G, M, wy_lane, s, g);
+  GT_PROF(LG_PH_ROWS);
+  float trace_p = trace_hi[g];
+#pragma unroll
+  for (int p = 1; p <= C + 1; ++p) {
+    if (p == C + 1 && calc_null) break;
+    const float2 ww = r[lg_ab(p, p, COLS)];
+    trace_p = trace_p - ww.y / ww.x;
+    const bool nz = ww.x != 0.f;
+    const float safe = nz ? ww.x : 1.f;
+#pragma unroll
+    for (int a = p + 1; a <= COLS; ++a)
+#pragma unroll
+      for (int b = a; b <= COLS; ++b) {
+        const int k = lg_ab(a, b, COLS);
+        r[k] = lg_entry(r[k], r[lg_ab(p, a, COLS)], r[lg_ab(p, b, COLS)],
+                        nz, safe, ww.y);
+      }
+  }
+  GT_PROF(LG_PH_STEPS);
+  // yy is the last flat position
+  d1f[(long)g * S + s] = lg_dev1(r[NI - 1].x, r[NI - 1].y, trace_p,
+                                 trace_hi[g], lam[g], n, C, calc_null, reml);
+  GT_PROF(LG_PH_DEV1);
 }
 
 // one step p of the warp form on the rows pp, lanes striding the live
@@ -181,15 +222,7 @@ __device__ __forceinline__ void lg_step(float2* pp, const unsigned* lab,
       ia = aw[k];
       ib = bw[k];
     }
-    const float2 a2 = pp[ia];
-    const float2 b2 = pp[ib];
-    const float2 kk = pp[k];
-    const float ps_aw = a2.x, ps_bw = b2.x, ps2_aw = a2.y, ps2_bw = b2.y;
-    const float ps2_ab = kk.y;
-    const float v = ps2_ab + ps_aw * ps_bw * ps2_ww / (safe * safe) -
-                    (ps_aw * ps2_bw + ps_bw * ps2_aw) / safe;
-    pp[k] = make_float2(nz ? kk.x - ps_aw * ps_bw / safe : kk.x,
-                        nz ? v : ps2_ab);
+    pp[k] = lg_entry(pp[k], pp[ia], pp[ib], nz, safe, ps2_ww);
   }
 }
 
@@ -214,7 +247,7 @@ __global__ void lambda_grid_warp(const float* __restrict__ xcross,
   const long lab_bytes = lg_lab_bytes(ni);
   unsigned* lab = reinterpret_cast<unsigned*>(lg_dyn);
   for (int a = 1 + threadIdx.x; lab_bytes && a <= cols; a += blockDim.x) {
-    const int b0 = lg_base(a, cols);
+    const int b0 = lg_ab(a, a, cols);
     for (int b = a; b <= cols; ++b) lab[b0 + b - a] = a | b << 16;
   }
   GT_PROF_START();
@@ -236,23 +269,8 @@ __global__ void lambda_grid_warp(const float* __restrict__ xcross,
   for (int e = threadIdx.x; e < ni * W; e += blockDim.x) {
     const int k = e >> wlog, w = e & (W - 1), slw = blockIdx.x * W + w;
     if (slw >= count) continue;
-    const int s = s0 + slw;
-    const int kind = t.kind[k], col = t.col[k];
-    float v0, v1;
-    if (kind == 0 && wy_lane) {
-      v0 = shared[(((long)0 * G + g) * M + col) * S + s];
-      v1 = shared[(((long)1 * G + g) * M + col) * S + s];
-    } else if (kind == 0) {
-      v0 = shared[((long)0 * G + g) * M + col];
-      v1 = shared[((long)1 * G + g) * M + col];
-    } else if (kind == 1) {
-      v0 = xx[((long)0 * G + g) * S + s];
-      v1 = xx[((long)1 * G + g) * S + s];
-    } else {
-      v0 = xcross[(((long)0 * G + g) * C1 + col) * S + s];
-      v1 = xcross[(((long)1 * G + g) * C1 + col) * S + s];
-    }
-    rows(w)[k] = make_float2(v0, v1);
+    rows(w)[k] = lg_row0(t.kind[k], t.col[k], xcross, xx, shared, C1, S, G,
+                         M, wy_lane, s0 + slw, g);
   }
   __syncthreads();
   GT_PROF(LG_PH_ROWS);
@@ -263,10 +281,10 @@ __global__ void lambda_grid_warp(const float* __restrict__ xcross,
   const int nc_total = calc_null ? n_cvt : n_cvt + 1;
   float trace_p = trace_hi[g];
   for (int p = 1; p <= nc_total; ++p) {
-    const int bp = lg_base(p, cols);           // (p, p)
+    const int bp = lg_ab(p, p, cols);          // (p, p)
     const float2 ww = pp[bp];
     trace_p = trace_p - ww.y / ww.x;
-    const int k0 = lg_base(p + 1, cols) + lane;
+    const int k0 = lg_ab(p + 1, p + 1, cols) + lane;
     if (lab_bytes)
       lg_step<true>(pp, lab, nullptr, nullptr, p, bp, k0, ni, ww.x, ww.y);
     else
@@ -275,26 +293,34 @@ __global__ void lambda_grid_warp(const float* __restrict__ xcross,
     __syncwarp();
   }
   GT_PROF(LG_PH_STEPS);
-  if (lane == 0) {
-    // yy is the last flat position
-    const float p_yy = pp[ni - 1].x;
-    const float pp_yy = pp[ni - 1].y;
-    const float l = lam[g];
-    const float ypkpy = (p_yy - pp_yy) / l;
-    float out;
-    if (reml) {
-      const float df = (float)(calc_null ? n - n_cvt : n - n_cvt - 1);
-      const float trace_pk = (df - trace_p) / l;
-      out = -0.5f * trace_pk + 0.5f * df * ypkpy / p_yy;
-    } else {
-      const float trace_hik = ((float)n - trace_hi[g]) / l;
-      out = -0.5f * trace_hik + 0.5f * (float)n * ypkpy / p_yy;
-    }
-    d1f[(long)g * S + s] = out;
-  }
+  if (lane == 0)   // yy is the last flat position
+    d1f[(long)g * S + s] = lg_dev1(pp[ni - 1].x, pp[ni - 1].y, trace_p,
+                                   trace_hi[g], lam[g], n, n_cvt, calc_null,
+                                   reml);
   GT_PROF(LG_PH_DEV1);
 }
 
+template <int C>
+static void lg_reg_launch(int n_cvt, dim3 grid, cudaStream_t st,
+                          const float* xcross, const float* xx,
+                          const float* shared, const float* trace_hi,
+                          const float* lam, int S, int G, int M, int n,
+                          int calc_null, int reml, int wy_lane, float* d1f,
+                          int s0, int count) {
+  if constexpr (C <= LG_REG_MAX) {
+    if (n_cvt == C)
+      lambda_grid_reg<C><<<grid, LG_REG_TPB, 0, st>>>(
+          xcross, xx, shared, trace_hi, lam, S, G, M, n, calc_null, reml,
+          wy_lane, d1f, s0, count);
+    else
+      lg_reg_launch<C + 1>(n_cvt, grid, st, xcross, xx, shared, trace_hi,
+                           lam, S, G, M, n, calc_null, reml, wy_lane, d1f,
+                           s0, count);
+  }
+}
+
+// up to LG_REG_MAX covariates the register form, above it the warp form,
+// which alone reads `tab` (kernels.pab_tables)
 extern "C" int lambda_grid_launch(const void* xcross, const void* xx,
                                   const void* shared, const void* trace_hi,
                                   const void* lam, const void* tab,
@@ -302,30 +328,37 @@ extern "C" int lambda_grid_launch(const void* xcross, const void* xx,
                                   int calc_null, int reml, int wy_lane,
                                   void* d1f, int s0, int count,
                                   void* scratch, void* stream) {
-  if (count > 0 && G > 0 && n_cvt <= GT_MAX_CVT) {
-    dim3 grid((count + 127) / 128, G);
-    lambda_grid_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-        (const float*)xcross, (const float*)xx, (const float*)shared,
-        (const float*)trace_hi, (const float*)lam, (const int*)tab, n_cvt, S,
-        G, M, n, calc_null, reml, wy_lane, (float*)d1f, s0, count);
-  } else if (count > 0 && G > 0) {
-    // above GT_MAX_CVT covariates the warp form
-    const int ni = gt_n_index(n_cvt), Ws = lg_smem_warps(ni);
+  const bool reg = n_cvt <= LG_REG_MAX;
+  if (n_cvt < 0 || (!reg && !tab)) return (int)cudaErrorInvalidValue;
+  if (count <= 0 || G <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *xc = (const float*)xcross, *x2 = (const float*)xx,
+              *sh = (const float*)shared, *th = (const float*)trace_hi,
+              *lm = (const float*)lam;
+  const int ni = gt_n_index(n_cvt);
+  if (reg) {
+    const dim3 grid((count + LG_REG_TPB - 1) / LG_REG_TPB, G);
+    lg_reg_launch<0>(n_cvt, grid, st, xc, x2, sh, th, lm, S, G, M, n,
+                     calc_null, reml, wy_lane, (float*)d1f, s0, count);
+  } else {
+    const int Ws = lg_smem_warps(ni);
     const int W = Ws ? Ws : LG_WARPS;
     const long smem = lg_lab_bytes(ni) + 8L * ni * Ws;
-    if (smem > LG_STATIC_SMEM)
+    if (smem + LG_PROF_SMEM > LG_DEFAULT_SMEM)
       cudaFuncSetAttribute(lambda_grid_warp,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
-    dim3 grid((count + W - 1) / W, G);
-    lambda_grid_warp<<<grid, 32 * W, smem, (cudaStream_t)stream>>>(
-        (const float*)xcross, (const float*)xx, (const float*)shared,
-        (const float*)trace_hi, (const float*)lam, (const int*)tab, n_cvt, S,
-        G, M, n, calc_null, reml, wy_lane, (float*)d1f, s0, count,
-        (float*)scratch);
+    const dim3 grid((count + W - 1) / W, G);
+    lambda_grid_warp<<<grid, 32 * W, smem, st>>>(
+        xc, x2, sh, th, lm, (const int*)tab, n_cvt, S, G, M, n, calc_null,
+        reml, wy_lane, (float*)d1f, s0, count, (float*)scratch);
   }
   return (int)cudaGetLastError();
 }
+
+// 1 where a launch of n_cvt covariates reads the Pab index tables (the
+// warp form), else 0
+extern "C" long lambda_grid_tables(int n_cvt) { return n_cvt > LG_REG_MAX; }
 
 // bytes of a lane's scratch: the two rows of each of its G (g, s) where
 // the warp form's rows do not fit shared memory, else 0

@@ -488,7 +488,8 @@ def grid_epilogue_plain(gp: GridProducts, n: int, n_cvt: int,
 
 def grid_epilogue_cuda(gp: GridProducts, n: int, n_cvt: int,
                        calc_null: bool, reml: bool) -> torch.Tensor:
-    """K2 on the card."""
+    """K2 on the card: its register form up to 12 covariates, its warp
+    form above, which alone reads the Pab index tables."""
     kernels.check_n_cvt(n_cvt)
     G, S = gp.xx.shape[1], gp.xx.shape[2]
     C1 = n_cvt + 1
@@ -502,14 +503,14 @@ def grid_epilogue_cuda(gp: GridProducts, n: int, n_cvt: int,
     kernels.check_operand(gp.trace_hi, "trace_hi", f32, (G,))
     kernels.check_operand(gp.lam, "lam", f32, (G,))
     dev = gp.xx.device
-    tab = kernels.pab_tables(n_cvt, str(dev))
-    d1f = torch.empty((G, S), dtype=f32, device=dev)
     kern = kernels.LAMBDA_GRID
+    tab = (kernels.pab_tables(n_cvt, str(dev)).data_ptr()
+           if kern.query("tables", n_cvt) else None)
+    d1f = torch.empty((G, S), dtype=f32, device=dev)
     kern.launch_lanes(dev, S, kern.lane_bytes(n_cvt, G), lambda s0, k, w: (
         gp.xcross.data_ptr(), gp.xx.data_ptr(), gp.shared.data_ptr(),
-        gp.trace_hi.data_ptr(), gp.lam.data_ptr(), tab.data_ptr(), n_cvt, S,
-        G, M, n, int(calc_null), int(reml), int(wy_lane), d1f.data_ptr(),
-        s0, k, w))
+        gp.trace_hi.data_ptr(), gp.lam.data_ptr(), tab, n_cvt, S, G, M, n,
+        int(calc_null), int(reml), int(wy_lane), d1f.data_ptr(), s0, k, w))
     return d1f
 
 
